@@ -3,7 +3,7 @@
 // The reference's server deserializes into an object graph of virtual
 // vertex/edge classes (reference remote/graph/GraphCpu.h:12-60,
 // BaseEdgeCpu.h:10-46).  Here the native runtime keeps the same
-// structs-of-arrays layout the TPU engine uses (toyslam_tpu/models/graph.py):
+// structs-of-arrays layout the JAX engine uses (toyslam_tpu/models/graph.py):
 // dense pose/landmark arrays plus per-type edge arrays — one contiguous
 // allocation each, trivially shareable with numpy via ctypes.
 #pragma once

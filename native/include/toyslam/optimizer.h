@@ -1,7 +1,7 @@
 // Native CPU Gauss-Newton optimizer.
 //
 // The standalone fallback/oracle backend: same damped-GN semantics as the
-// TPU engine (toyslam_tpu/optimizer/gauss_newton.py) and the reference
+// JAX engine (toyslam_tpu/optimizer/gauss_newton.py) and the reference
 // Python optimizer (reference python/optimizer/graph_optimizer.py:20-155),
 // so the three implementations cross-check each other — the
 // "cross-implementation redundancy" oracle SURVEY.md §4 identifies.

@@ -6,7 +6,7 @@
 // remote/app/ConnectionHandler.h:7-52) built on plain POSIX sockets: an
 // accept loop hands each connection to the thread pool; a session loops
 // reading one length-prefixed graph frame, dispatching it to the optimize
-// callback (the embedded TPU engine via the C ABI, or the built-in native
+// callback (the embedded JAX engine via the C ABI, or the built-in native
 // CPU optimizer), and writing the optimized graph back as one frame.
 // Like the reference, the server is stateless between requests
 // (ConnectionHandler.h:14-37) and a dead session never takes down the

@@ -222,7 +222,7 @@ int ts_optimize(TsGraph* g, const TsOptimizeOptions* opts,
 
   // Per-thread chunked accumulators: k extra D^2 buffers. Worth it only
   // while the buffers stay cache/memory friendly; large graphs go serial
-  // (the TPU engine is the scaling path, this backend is the oracle).
+  // (the JAX engine is the scaling path, this backend is the oracle).
   size_t n_threads =
       o.num_threads > 0
           ? static_cast<size_t>(o.num_threads)

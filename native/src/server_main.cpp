@@ -3,7 +3,7 @@
 // CLI-compatible role with the reference server entry (reference
 // remote/app/main.cpp:5-48: HOST PORT ITERATIONS PIPELINE SOLVER). The
 // native build has a single pipeline (the built-in CPU Gauss-Newton,
-// toyslam/optimizer.h) — the TPU pipeline is served by the Python host
+// toyslam/optimizer.h) — the JAX pipeline is served by the Python host
 // (python -m toyslam_tpu.app serve), which embeds the same server via the
 // C ABI and plugs the JAX engine in as the optimize callback.
 #include <csignal>

@@ -24,8 +24,8 @@ deterministically, straight from the compiled programs:
                 bytes-based reported alongside)
 
 assuming uniform throughput — the honest model-level upper bound; the
-counted collective bytes are reported per iteration so the ICI cost can
-be bounded separately (boundary-sized arrays, us-scale on a v5e ring).
+counted collective bytes are reported per iteration so the interconnect
+cost can be bounded separately (boundary-sized arrays).
 
 Phases (config algebra, no internal surgery):
   build = solve with pcg_max_iters=0
@@ -83,7 +83,7 @@ def main():
     def cfg_for(pc, max_iters):
         return OptimizerConfig(
             solver="schur", pcg_precond=pc, pcg_max_iters=max_iters,
-            pcg_tol=0.0, pcg_backend="xla", pcg_coarse_group=64,
+            pcg_tol=0.0, pcg_coarse_group=64,
             pcg_coarse_group2=4, pcg_unroll=True,
             pcg_restart_every=max(max_iters, 1),
         )
@@ -175,7 +175,8 @@ def main():
             "unrolled (config.pcg_unroll) so per-iteration counts are "
             "k2-k1 differences; psum bytes counted from the jaxpr; "
             "pred_eff assumes uniform throughput (model-level bound, "
-            "ICI time bounded separately from the counted psum bytes)"
+            "interconnect time bounded separately from the counted psum "
+            "bytes)"
         ),
         "workload": {
             "poses": args.poses, "landmarks": args.landmarks,
@@ -269,7 +270,7 @@ def main():
             f"min(eff,1)={min(eff_p, 1.0)} as the conservative bound; "
             f"uniform-throughput model, "
             f"{it_p['psum_bytes_by_D'][str(dmax)]/1e3:.1f} kB of counted "
-            f"psum traffic per PCG iteration rides ICI); edge-sharding "
+            f"psum traffic per PCG iteration); edge-sharding "
             f"is bounded at {eff_e}"
         ),
     }

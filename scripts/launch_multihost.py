@@ -2,8 +2,7 @@
 
 The reference's only cross-process story is one TCP socket per graph
 (reference remote/conn/ConnectionManagerServer.h:22-61).  Here N worker
-processes join a jax.distributed runtime (Gloo on CPU here; the identical
-code joins TPU pods over DCN), build the same deterministic problem, shard
+processes join a jax.distributed runtime (Gloo on CPU), build the same deterministic problem, shard
 the edges over the global host mesh, and run the collective-Schur
 Gauss-Newton — every reduction is an XLA collective, no sockets in the hot
 path.
@@ -129,7 +128,7 @@ def launch(args) -> int:
         "bitwise_agreement_across_processes": len(checks) == 1,
         "num_processes": args.procs,
         "devices_per_process": args.devices_per_proc,
-        "comm_backend": "gloo (cpu) — same initialize joins TPU pods/DCN",
+        "comm_backend": "gloo (cpu)",
         "result": outs[0],
     }
     if args.out:

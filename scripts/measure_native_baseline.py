@@ -17,9 +17,10 @@ import os
 import sys
 import time
 
-import _bootstrap  # noqa: F401,E402  (source-checkout shim)
-
+# before _bootstrap, which imports jax (jax reads JAX_PLATFORMS at import)
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import _bootstrap  # noqa: F401,E402  (source-checkout shim)
 
 import numpy as np
 

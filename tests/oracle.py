@@ -2,7 +2,7 @@
 
 Re-derives (does not copy) the per-edge residual/Jacobian formulas and the
 dense H/b assembly semantics of the reference Python optimizer
-(python/optimizer/graph_optimizer.py:94-150, edges2d.py:21-78) so the TPU
+(python/optimizer/graph_optimizer.py:94-150, edges2d.py:21-78) so the JAX
 implementation can be checked block-for-block.  Written against the spec in
 SURVEY.md §2/§7, state layout [poses*3 | landmarks*2].
 """

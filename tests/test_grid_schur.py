@@ -41,7 +41,7 @@ def test_grid_matches_schur(graph, precond, refresh):
         iterations=6, lr=1.0, solver="schur", exact_odom_jacobians=True,
         pcg_tol=1e-2, pcg_max_iters=15, pcg_restart_every=15,
         pcg_precond=precond, pcg_coarse_group=32,
-        pcg_precond_refresh=refresh, pcg_backend="xla",
+        pcg_precond_refresh=refresh,
     )
     res_ref = GaussNewton(base).optimize(graph)
     cfg = dataclasses.replace(base, solver="schur_grid")
@@ -92,47 +92,3 @@ def test_grid_rejects_closure_odometry(graph):
     )
     with pytest.raises(ValueError, match="chain"):
         grid_schur.build_grid_plan(g)
-
-
-def test_band_cost_gate_decisions():
-    """pcg_backend='auto' routes through the measured cost model
-    (round 5, VERDICT r4 weak #6): band when the streamed stack +
-    window overhead beats the grid loop's gather/launch cascade, grid
-    otherwise; 'fused' forces band, 'xla' forbids it."""
-    import dataclasses as dc
-    from types import SimpleNamespace
-
-    import numpy as np
-
-    from toyslam_tpu.config import OptimizerConfig
-    from toyslam_tpu.ops import grid_schur
-
-    def stub(n, m, kl, kp, chunks, k_win, w_row, b=64):
-        band = SimpleNamespace(
-            chunk_b=b, k_windows=k_win, w_row=w_row, n_chunks=chunks,
-            n_wide=0,
-        )
-        return SimpleNamespace(
-            band=band,
-            L_pose=np.zeros(m * kl, np.int32),
-            P_pose=np.zeros(n * kp, np.int32),
-        )
-
-    cfg = OptimizerConfig(
-        solver="schur_grid", pcg_backend="auto", pcg_max_iters=15,
-        pcg_precond="jacobi",
-    )
-    # 10k-single-shaped: 245 MB stack, 78 windows -> band wins
-    gp_10k = stub(10240, 10240, 8, 8, chunks=39, k_win=2, w_row=512,
-                  b=256)
-    assert grid_schur._band_cost_wins(cfg, gp_10k, 10240)
-    # same graph but a pathological layout (10k windows of a fat stack):
-    # window overhead alone exceeds the whole grid loop -> grid wins
-    gp_bad = stub(10240, 10240, 8, 8, chunks=2560, k_win=12, w_row=512,
-                  b=64)
-    assert not grid_schur._band_cost_wins(cfg, gp_bad, 10240)
-    # 100k-shaped (3 GB stack, 3.9k windows, cap 60): band wins
-    cfg100 = dc.replace(cfg, pcg_max_iters=60)
-    gp_100k = stub(100352, 50176, 25, 8, chunks=388, k_win=10,
-                   w_row=256, b=128)
-    assert grid_schur._band_cost_wins(cfg100, gp_100k, 100352)

@@ -4,7 +4,7 @@ Spawns real separate worker processes (the launcher in
 scripts/launch_multihost.py), each with its own fake-device CPU mesh slice,
 and checks the collective Gauss-Newton agrees bitwise across processes —
 the testable stand-in for the reference's missing multi-node story
-(SURVEY.md §2.3) and for TPU-pod DCN runs.
+(SURVEY.md §2.3).
 """
 
 import json

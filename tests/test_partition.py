@@ -1,6 +1,5 @@
 """Keyframe/map-block state partitioning (parallel/partition.py) vs the
-single-device Schur solve — the north-star distribution design
-(VERDICT r2 item 2).  Runs on the 8-fake-device CPU mesh."""
+single-device Schur solve — the scalable distribution design.  Runs on the 8-fake-device CPU mesh."""
 
 import dataclasses
 

@@ -1,6 +1,5 @@
 """Partitioned SE(3)/BA (parallel/partition.py on FactorGraph3D) vs the
-single-device schur3d solve — the north-star distributed-BA composition
-(VERDICT r3 missing-item: partitioned mode was SE(2)-only)."""
+single-device schur3d solve — the distributed-BA composition."""
 
 import jax
 import jax.numpy as jnp
@@ -77,7 +76,7 @@ def _to_f64(tree):
 
 
 def test_partitioned3d_solve_matches_single_device_f64(ba_setup, mesh):
-    """f64 pin of ALGORITHMIC equivalence (VERDICT r4 weak #5): the f32
+    """f64 pin of ALGORITHMIC equivalence: the f32
     variant's rtol=2e-2 gate is justified as the f32 floor of the
     cond~3e6 BA Schur complement, but a ~1% partitioning bug would pass
     it.  In f64 the same two solves must agree to ~1e-9 — any structural

@@ -403,7 +403,7 @@ def _spd_inverse_residual(a32, x):
 
 def test_spd_inverse_converges_within_cond_bound():
     """spd_inverse derives its iteration count from the caller's
-    condition bound (ADVICE r4: a fixed 24 silently under-converged at
+    condition bound (a fixed 24 silently under-converged at
     high cond).  In the operating envelope — call sites boost the
     diagonal 1e-4 so equilibrated cond is ~1e4 — the derived count must
     reach the f32 floor, an under-budgeted count must not (documents
@@ -424,7 +424,7 @@ def test_spd_inverse_converges_within_cond_bound():
 def test_chol_small_clamped_pivot_stays_bounded():
     """A block whose early pivot rounds to ~0 must yield a FINITE bounded
     factor: the old absolute 1e-30 clamp produced l=1e-15 pivots whose
-    divided columns blew up to ~1e30/inf (ADVICE r4)."""
+    divided columns blew up to ~1e30/inf)."""
     # a00 ~ 0 with O(1) off-diagonals: the first pivot clamps
     a3 = np.array([
         [[0.0, 0.7, 0.3],

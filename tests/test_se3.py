@@ -188,3 +188,55 @@ def test_ba_converges_to_ground_truth():
     np.testing.assert_allclose(
         rtr, np.broadcast_to(np.eye(3), rtr.shape), atol=1e-3
     )
+
+
+def _np_rot(w):
+    """Rodrigues in float64 numpy, independent of se3.exp_so3."""
+    th = np.linalg.norm(w, axis=-1)[:, None, None]
+    k = np.zeros(w.shape[:-1] + (3, 3))
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+    k = k - np.swapaxes(k, -1, -2)
+    return (np.eye(3) + np.sin(th) / th * k
+            + (1.0 - np.cos(th)) / th**2 * (k @ k))
+
+
+@pytest.mark.parametrize(
+    "op", ["compose", "inverse", "transform_point", "inv_transform_point",
+           "retract"],
+)
+def test_pinned_ops_match_numpy_f64(op):
+    """The HIGHEST-precision SE(3) products against the same maths in
+    numpy float64: float32 rounding only (inputs are O(1)-O(10), so the
+    absolute error stays below 1e-5)."""
+    rng = np.random.default_rng(7)
+    n = 64
+    wa, wb, wd = (rng.normal(scale=0.8, size=(n, 3)) for _ in range(3))
+    ta, tb = (rng.normal(scale=3.0, size=(n, 3)) for _ in range(2))
+    pt = rng.normal(scale=5.0, size=(n, 3))
+    dt = rng.normal(scale=0.5, size=(n, 3))
+    Ra, Rb = _np_rot(wa), _np_rot(wb)
+
+    def flat(R, t):
+        return np.concatenate([R.reshape(n, 9), t], axis=-1)
+
+    def f32(x):
+        return jnp.asarray(x, jnp.float32)
+
+    a, b = f32(flat(Ra, ta)), f32(flat(Rb, tb))
+    if op == "compose":
+        got = se3.compose(a, b)
+        want = flat(Ra @ Rb, ta + np.einsum("nij,nj->ni", Ra, tb))
+    elif op == "inverse":
+        got = se3.inverse(a)
+        Rt = np.swapaxes(Ra, -1, -2)
+        want = flat(Rt, -np.einsum("nij,nj->ni", Rt, ta))
+    elif op == "transform_point":
+        got = se3.transform_point(a, f32(pt))
+        want = ta + np.einsum("nij,nj->ni", Ra, pt)
+    elif op == "inv_transform_point":
+        got = se3.inv_transform_point(a, f32(pt))
+        want = np.einsum("nji,nj->ni", Ra, pt - ta)
+    else:
+        got = se3.retract(a, f32(np.concatenate([dt, wd], axis=-1)))
+        want = flat(Ra @ _np_rot(wd), ta + dt)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=1e-5)

@@ -79,9 +79,9 @@ def test_large_problem_optimizes():
 
 @pytest.mark.slow
 def test_large_problem_truncated_newton_quality_gate():
-    """Acceptance bound for the scale-up config (VERDICT r1 item 8): the
-    TPU-tuned truncated-Newton budget (tight PCG cap + periodic
-    preconditioner refresh, exp_budget10k.py) must reach a robust chi^2 at
+    """Acceptance bound for the scale-up config: the truncated-Newton
+    budget (tight PCG cap + periodic preconditioner refresh) must reach
+    a robust chi^2 at
     or below the chi^2 of the GROUND-TRUTH state.  The workload is
     drift-limited (odometry noise integrates to tens of units), so ATE of
     any max-likelihood solution plateaus — chi2-vs-GT is the honest
@@ -130,7 +130,7 @@ def test_large_problem_truncated_newton_quality_gate():
 def test_revisit_workload_ate_gate():
     """The scale config with loop closures (laps=2): revisits anchor
     drift, so ATE becomes a real acceptance gate alongside chi^2
-    (VERDICT r2 item 6).  CPU-sized replica of large-sparse-10k-revisit
+    CPU-sized replica of large-sparse-10k-revisit
     (scripts/bench_suite.py), same truncated-Newton budget."""
     from toyslam_tpu.config import OptimizerConfig
     from toyslam_tpu.optimizer import GaussNewton

@@ -1,4 +1,4 @@
-"""toyslam_tpu — a TPU-native 2D/3D SLAM framework built on JAX/XLA/Pallas.
+"""toyslam_tpu — a 2D/3D SLAM back end built on JAX/XLA.
 
 A from-scratch re-design of the capability surface of the reference 2D LiDAR
 SLAM system (fatlipp/ToySlam): simulated LiDAR scan generation, landmark
@@ -7,7 +7,7 @@ odometry and landmark edges with Huber robustification — expressed array-first
 
 * the factor graph is structs-of-arrays (``models.graph``), not an object graph;
 * per-edge residuals/Jacobians are vmapped analytic kernels (``ops.residuals``);
-* the normal equations are assembled as one MXU matmul (dense path) or
+* the normal equations are assembled as one matmul (dense path) or
   block-sparse with Schur-complement landmark elimination + PCG (``ops``);
 * scaling is a ``shard_map`` over a device mesh with ``psum`` collectives
   (``parallel``), replacing the reference's TCP client/server split.

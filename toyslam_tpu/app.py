@@ -117,7 +117,6 @@ def cmd_run(args) -> int:
             iterations=args.iterations,
             lr=args.lr,
             solver=args.solver,
-            edge_backend=args.edge_backend,
         ),
     )
     if args.live:
@@ -313,7 +312,7 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="toyslam_tpu",
-        description="TPU-native SLAM framework (see README.md)",
+        description="JAX SLAM back end (see README.md)",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -323,8 +322,6 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--iterations", type=int, default=10)
     r.add_argument("--lr", type=float, default=0.2)
     r.add_argument("--solver", choices=("dense", "schur"), default="schur")
-    r.add_argument("--edge-backend", choices=("xla",),
-                   default="xla")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--live", action="store_true",
                    help="per-frame incremental mode with live view updates "
@@ -362,6 +359,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from toyslam_tpu import compile_cache
+
+    compile_cache.enable()
     return args.fn(args)
 
 

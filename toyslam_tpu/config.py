@@ -143,22 +143,20 @@ class OptimizerConfig:
     #                       reduction;
     #   "chunk"           — the block-tridiagonal solve restricted to
     #                       ``pcg_chunk``-pose chunks, applied as ONE
-    #                       batched MXU matmul (vs the PCR apply's
-    #                       ~log2(N) sequential levels of small VPU ops) —
-    #                       the latency-optimal local preconditioner for
-    #                       large graphs;
+    #                       batched matmul (vs the PCR apply's ~log2(N)
+    #                       sequential levels of small block ops);
     #   "<local>+coarse"  — two-level: local + additive Galerkin
     #                       coarse-grid correction over groups of
     #                       ``pcg_coarse_group`` poses.  Large graphs need
     #                       the coarse level: smooth error modes otherwise
-    #                       dominate (measured 10k-pose: 389 PCG iters with
-    #                       tridiag alone).
+    #                       dominate (10k-pose: 389 PCG iters with tridiag
+    #                       alone).
     pcg_precond: str = "tridiag"
     pcg_coarse_group: int = 64
     # Partitioned (multi-device) solves only: the "+coarse" level is a
     # THREE-level additive scheme there (parallel/partition.py) — the
-    # coarse system itself is never solved replicated (that replicated
-    # solve capped predicted scaling efficiency at 0.52, SCALING.json v2).
+    # coarse system itself is never solved replicated (a replicated
+    # solve would grow with the whole coarse graph on every device).
     # ``pcg_coarse_group2`` = coarse groups per super-group: level 2 is
     # batched dense inverses of super-group diagonal blocks of S_c (zero
     # communication, work O(Nc/D) per device), level 3 a replicated
@@ -169,42 +167,19 @@ class OptimizerConfig:
     # Cholesky) is rebuilt: 1 = every GN iteration (always exact);
     # 0 = built once at the initial state and FROZEN for the whole
     # optimize() call; K>1 = rebuilt every K-th GN iteration.  A
-    # preconditioner only needs to *approximate* S, and its build cost
-    # (PCR factorization + coarse Cholesky, ~34 ms/iteration on the 10k
-    # workload) dominates the solve when PCG converges in a few dozen
-    # iterations — freezing trades a few extra PCG iterations for
-    # skipping the builds.  Single-device only: the distributed path
-    # always rebuilds (a conditional around psum-carrying builds would
-    # put collectives under lax.cond, which mis-lowers in shard_map).
+    # preconditioner only needs to *approximate* S, and its build (PCR
+    # factorization + coarse inverse) can dominate the solve when PCG
+    # converges in a few dozen iterations — freezing trades a few extra
+    # PCG iterations for skipping the builds.  Single-device only: the
+    # distributed path always rebuilds (a conditional around psum-carrying
+    # builds would put collectives under lax.cond, which mis-lowers in
+    # shard_map).
     pcg_precond_refresh: int = 1
-    # Per-edge linearization backend: only "xla" remains.  The standalone
-    # per-edge Pallas kernels were RETIRED in round 4: three rounds of
-    # recorded A/Bs (BENCH_PALLAS.json) had them statistically tied with
-    # the XLA-fused linearization on every config (the linearization is a
-    # small slice of the solve), and the kernels that actually win are the
-    # whole-loop fused/banded PCG kernels (ops/fused_pcg.py).  The field
-    # stays so configs/CLIs that name it fail with this explanation
-    # instead of a silent attribute error.
-    edge_backend: str = "xla"
-    # PCG loop backend (schur solver, single-device):
-    #   "auto"  — use the fused Pallas PCG kernel (ops/fused_pcg.py: the
-    #             whole CG loop in chunk-sized on-chip launches, the Schur
-    #             operator in exact T - V V^T form) whenever the graph
-    #             supports it (V fits the VMEM budget, jacobi/tridiag
-    #             local preconditioner); otherwise the XLA loop.
-    #   "fused" — require the fused kernel; raise if unsupported.
-    #   "xla"   — always the XLA while_loop (the correctness oracle).
-    pcg_backend: str = "auto"
     # Measurement-harness knob (scripts/bench_scaling_phases.py): run the
     # PCG loop as exactly pcg_max_iters trace-time-unrolled iterations
     # (no while_loop, no early exit) so XLA cost_analysis can count
     # per-iteration work.  Never set for production solves.
     pcg_unroll: bool = False
-    # PCG iterations per fused-kernel launch; also the true-residual
-    # replacement period on the fused path (the XLA path keeps
-    # pcg_restart_every).  Smaller = finer convergence-check granularity,
-    # larger = fewer launches.
-    pcg_fused_chunk: int = 16
     # True Levenberg-Marquardt step control: after each solve, evaluate the
     # error at the *updated* state (residuals only — cheap next to the
     # solve); if it increased, revert the step and multiply lambda by
@@ -217,7 +192,7 @@ class OptimizerConfig:
 
     def __post_init__(self):
         # A typo'd preconditioner name would otherwise silently degrade to
-        # block-Jacobi in build_precond's else branch (ADVICE r2).
+        # block-Jacobi in build_precond's else branch.
         local, _, coarse = self.pcg_precond.partition("+")
         if local not in ("jacobi", "tridiag", "chunk") or coarse not in (
             "", "coarse"
@@ -228,24 +203,9 @@ class OptimizerConfig:
             )
         if self.solver not in ("dense", "schur", "schur_grid", "schur3d"):
             raise ValueError(f"unknown solver {self.solver!r}")
-        if self.edge_backend != "xla":
-            raise ValueError(
-                f"edge_backend={self.edge_backend!r}: only 'xla' exists — "
-                "the per-edge Pallas kernels were retired in round 4 "
-                "(measured tie, BENCH_PALLAS.json; ops/fused_pcg.py is "
-                "the winning kernel path)"
-            )
-        if self.pcg_backend not in ("auto", "fused", "xla"):
-            raise ValueError(f"unknown pcg_backend {self.pcg_backend!r}")
         if self.pcg_coarse_group2 < 1:
             raise ValueError(
                 f"pcg_coarse_group2={self.pcg_coarse_group2}: must be >= 1"
-            )
-        if self.pcg_fused_chunk < 1:
-            # 0/negative would reach fused_pcg's ceil-division at trace
-            # time as a ZeroDivisionError instead of a config error
-            raise ValueError(
-                f"pcg_fused_chunk={self.pcg_fused_chunk}: must be >= 1"
             )
 
 

@@ -7,7 +7,7 @@ Two interchangeable servers speak the framed graph protocol (io/codec.py):
   backend, the native analogue of the reference's boost::asio server
   (reference remote/app/main.cpp:5-48):
 
-  - ``backend="jax"``: the TPU engine as the optimize callback — native
+  - ``backend="jax"``: the JAX engine as the optimize callback — native
     transport/codec, XLA compute;
   - ``backend="native"``: zero-Python request path, the built-in C++ CPU
     Gauss-Newton (native/src/optimizer.cpp).
@@ -33,7 +33,7 @@ OptimizeFn = Callable[[FactorGraph2D], FactorGraph2D]
 
 
 def jax_optimize_fn(cfg: Optional[OptimizerConfig] = None) -> OptimizeFn:
-    """The TPU engine as a server callback (GaussNewton.optimize)."""
+    """The JAX engine as a server callback (GaussNewton.optimize)."""
     from toyslam_tpu.optimizer import GaussNewton
 
     gn = GaussNewton(cfg or OptimizerConfig(solver="schur"))

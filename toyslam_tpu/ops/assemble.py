@@ -9,8 +9,9 @@ per-edge Jacobian blocks into one tall sparse-in-structure dense matrix
 
     H = J^T (W J),    b = J^T (W r)
 
-as a single MXU matmul / matvec.  The scatter is deterministic (no atomics,
-no mutex — compare OptimizerCpu.h:101-118) and the FLOPs land on the MXU.
+as a single matmul / matvec.  The products are deterministic (no atomics,
+no mutex — compare OptimizerCpu.h:101-118) and the FLOPs land in one dense
+matrix product.
 
 ``R = 3*E_odom + 2*E_lm`` and ``D = 3*N + 2*M``.  State layout: all pose
 blocks first, then all landmark blocks — the same offset scheme the
@@ -134,9 +135,9 @@ def assemble_dense(
         bm.mv(w_lm, lme.r) * graph.lm_edges.mask[:, None]
     )
 
-    # --- the MXU does the heavy lifting.  HIGHEST keeps full f32 accuracy
-    # (bf16-pass matmuls lose ~3 decimal digits, visible against the 1e6
-    # gauge prior); the dense path serves small graphs so the 3x-pass cost
+    # --- one dense product does the heavy lifting.  HIGHEST keeps full
+    # f32 accuracy (TF32 loses ~3 decimal digits, visible against the 1e6
+    # gauge prior); the dense path serves small graphs so the extra cost
     # is irrelevant next to the O(D^3) solve.
     H = jnp.dot(
         J.T, WJ, precision=jax.lax.Precision.HIGHEST,

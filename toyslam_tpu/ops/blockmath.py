@@ -1,11 +1,11 @@
-"""Tiny-block linear algebra as broadcast + reduce (VPU-shaped).
+"""Tiny-block linear algebra as broadcast + reduce (elementwise).
 
-``jnp.einsum`` lowers contractions to ``dot_general``, which XLA maps onto
-the 128x128 MXU — catastrophic for batched 3x3/3x2/2x2 blocks (each tiny
-block pads to a full tile; measured ~100x off speed-of-light in the PCG
-loop).  Writing the same products as elementwise multiplies with explicit
-``sum`` over the 2-or-3-long axes keeps them on the VPU at full f32
-precision and lets XLA fuse them with neighbors.
+``jnp.einsum`` lowers contractions to ``dot_general``, which XLA hands to a
+matrix-multiply routine — wasteful for batched 3x3/3x2/2x2 blocks, where
+each tiny block is far below a matrix unit's tile.  Writing the same
+products as elementwise multiplies with explicit ``sum`` over the
+2-or-3-long axes keeps them at full f32 precision (no dot, so no TF32) and
+lets XLA fuse them with neighbors.
 
 Shapes use trailing block axes: ``A [..., a, b]``, vectors ``x [..., b]``.
 """

@@ -12,15 +12,8 @@ Jacobian products that feed the block-sparse Hessian (``ops/schur.py``):
   ``JA^T W' JA``, ``JB^T W' JB``, ``JA^T W' JB`` and the two gradient pieces
   (KernelSe2Point2.cu:46-155 is the CUDA analogue).
 
-Two interchangeable backends produce these blocks:
-
-* ``"xla"``  — batched jnp formulas (ops/residuals.py + ops/blockmath.py),
-  fully fused by XLA; the correctness oracle.
-* ``"pallas"`` — RETIRED in round 4: three rounds of recorded A/Bs
-  (BENCH_PALLAS.json) were statistical ties, so the standalone per-edge
-  kernels were deleted; ops/fused_pcg.py holds the kernels that win.
-
-Downstream accumulation is the deterministic gather-plan/segment-sum in
+The blocks are batched jnp formulas (ops/residuals.py + ops/blockmath.py)
+that XLA fuses.  Downstream accumulation is the deterministic gather-plan/segment-sum in
 ops/schur.py either way — never atomics (compare KernelSe2.cu:83-110).
 """
 
@@ -76,7 +69,6 @@ def odom_edge_blocks(
     mask: jax.Array,
     huber_delta: float,
     exact: bool = False,
-    backend: str = "xla",
 ) -> OdomBlocks:
     if exact:
         # Exact SE(2) Jacobians break the ±W' structure this interface
@@ -85,14 +77,6 @@ def odom_edge_blocks(
         raise ValueError(
             "odom_edge_blocks encodes the reference's A=-I/B=I structure; "
             "exact Jacobians go through ops.residuals directly"
-        )
-    if backend == "pallas":
-        raise ValueError(
-            "the standalone per-edge Pallas kernels were retired in round"
-            " 4: three rounds of recorded A/Bs (BENCH_PALLAS.json) showed"
-            " them statistically tied with the XLA-fused linearization,"
-            " and the fused/banded PCG kernels (ops/fused_pcg.py) are the"
-            " TPU-kernel path that actually wins"
         )
     od = res_ops.eval_odom_edges(
         poses, i, j, meas, info, mask, huber_delta, exact=False
@@ -113,10 +97,7 @@ def lm_edge_blocks(
     info: jax.Array,
     mask: jax.Array,
     huber_delta: float,
-    backend: str = "xla",
 ) -> LmBlocks:
-    if backend == "pallas":
-        raise ValueError("pallas edge backend retired (see above)")
     lme = res_ops.eval_landmark_edges(
         poses, landmarks, pose_idx, lm_idx, meas, info, mask, huber_delta
     )

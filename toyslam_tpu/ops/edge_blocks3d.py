@@ -1,10 +1,8 @@
-"""Backend dispatch for SE(3) reprojection-edge linearization.
+"""SE(3) reprojection-edge linearization.
 
 3D analogue of ops/edge_blocks.py: one call per edge *type* returns the
-weighted Hessian/gradient blocks for every edge at once; ``backend``
-selects the batched-XLA formulas (the correctness oracle, built on
-ops/residuals3d.py) or the fused component-major Pallas TPU kernel
-(the per-edge Pallas variant was retired in round 4).  The reference has no 3D
+weighted Hessian/gradient blocks for every edge at once, as batched
+formulas built on ops/residuals3d.py.  The reference has no 3D
 capability; the CUDA analogue being replaced is the per-edge landmark
 kernel remote/cuda/optimizer/kernels/KernelSe2Point2.cu:46-155 lifted to
 6/3-dof blocks.
@@ -47,13 +45,7 @@ def reproj_edge_blocks(
     info: jax.Array,
     mask: jax.Array,
     huber_delta: float,
-    backend: str = "xla",
 ) -> ReprojBlocks:
-    if backend == "pallas":
-        raise ValueError(
-            "the standalone per-edge Pallas kernels were retired in "
-            "round 4 (see ops/edge_blocks.py)"
-        )
     rp = res3.eval_reproj_edges(
         poses, landmarks, intrinsics, pose_idx, lm_idx, meas, info, mask,
         huber_delta,

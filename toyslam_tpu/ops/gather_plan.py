@@ -1,17 +1,16 @@
 """Scatter-free reductions: per-vertex edge tables turn segment_sum into
 gather + dense reduce.
 
-TPU executes gathers at full bandwidth but serializes scatter-adds; a
-``segment_sum`` over 60k edges costs ~1.5 ms inside the PCG loop (measured),
-dwarfing the ~2 MFLOP of actual work.  The fix is the transpose of the
-classic CSR trick: precompute, per vertex, the (padded, fixed-capacity)
+A ``segment_sum`` is a scatter-add: on a GPU it runs with atomics, whose
+sum order changes from run to run.  The alternative is the transpose of
+the classic CSR trick: precompute, per vertex, the (padded, fixed-capacity)
 list of incident edge indices, then every per-vertex reduction becomes
 
     out[v] = sum_k values[ table[v, k] ] * mask[v, k]
 
 — a gather, an elementwise multiply, and a dense axis reduction.  No
 atomics (CUDA reference: KernelSe2.cu:83-110), no mutex (OptimizerCpu.h:
-101-118), no scatter: deterministic and VPU-shaped.
+101-118), no scatter: deterministic and elementwise.
 
 The tables depend only on graph *structure* (host-side index arrays), so
 they are built once per graph on the host and reused across all GN/PCG
@@ -40,48 +39,23 @@ class VertexTable:
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
-class FusedAux:
-    """Host-extracted structure for the fused Pallas PCG path
-    (ops/fused_pcg.py): the non-chain odometry edges (j != i+1 — loop
-    closures), whose off-diagonal Hessian blocks cannot ride the
-    block-tridiagonal part of the fused operator and are folded into the
-    dense low-rank factor instead.  The *presence* of this aux on a plan is
-    a static pytree property, so trace-time gating on it is jit-safe."""
-
-    closure_e: jax.Array   # i32[C] odometry edge index
-    closure_i: jax.Array   # i32[C] first pose of that edge
-    closure_j: jax.Array   # i32[C] second pose
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
 class GatherPlan:
     lm_by_pose: VertexTable   # landmark edges grouped by observing pose
     lm_by_lm: VertexTable     # landmark edges grouped by landmark
     odom_by_i: VertexTable    # odometry edges grouped by first pose
     odom_by_j: VertexTable    # odometry edges grouped by second pose
-    # FusedAux when built host-side (attach_plan); None for sharded plans —
-    # the fused single-device solver is gated on its presence.
-    fused: object = None
-    # BandAux (ops/band_plan.py) when the graph is large enough that the
-    # VMEM-resident fused operator cannot apply and the banded run
-    # structure exists; gates the HBM-streamed fused path.
-    band: object = None
 
 
 def _build_table(
     vertex_ids: np.ndarray, mask: np.ndarray, num_vertices: int,
-    pad_to: int = 1, k_override: int | None = None,
+    k_override: int | None = None,
 ) -> VertexTable:
     ids = vertex_ids[mask > 0]
     edge_idx = np.nonzero(mask > 0)[0]
     counts = np.bincount(ids, minlength=num_vertices)
-    k = int(counts.max()) if counts.size else 0
-    # capacity = the actual max incident count: TPU gather cost scales with
-    # ROWS gathered (measured ~2 ns/row, latency-bound), so padding K up
-    # (the old pad_to=8) multiplied the dominant PCG matvec cost — for the
-    # odometry chain (true K=1) by 8x.
-    k = max(pad_to, -(-k // pad_to) * pad_to, 1)
+    # capacity = the actual max incident count: gather cost scales with
+    # ROWS gathered, so padding K up multiplies the dominant PCG matvec cost
+    k = max(int(counts.max()) if counts.size else 0, 1)
     if k_override is not None:
         assert k_override >= k, (k_override, k)
         k = k_override
@@ -99,58 +73,23 @@ def _build_table(
     return VertexTable(idx=tbl, mask=msk)
 
 
-def build_gather_plan(
-    graph: FactorGraph2D, want_band: bool | None = None
-) -> GatherPlan:
-    """Host-side construction from the graph's (host-resident) index arrays.
-
-    ``want_band`` gates the banded-layout structure search (an O(E)
-    host-side pass plus a ~20-candidate layout search — seconds at 100k):
-    callers that can never select the fused band path (``pcg_backend ==
-    'xla'``) pass False; None keeps the scale heuristic (ADVICE r4).
-    """
+def build_gather_plan(graph: FactorGraph2D) -> GatherPlan:
+    """Host-side construction from the graph's (host-resident) index
+    arrays."""
     n, m = graph.num_poses, graph.num_landmarks
-    lm_pose = np.asarray(graph.lm_edges.pose)
-    lm_lm = np.asarray(graph.lm_edges.lm)
     lm_mask = np.asarray(graph.lm_edges.mask)
-    od_i = np.asarray(graph.odom.i)
-    od_j = np.asarray(graph.odom.j)
     od_mask = np.asarray(graph.odom.mask)
-    closure = np.nonzero((od_mask > 0) & (od_j != od_i + 1))[0].astype(np.int32)
-    # block geometry off the state arrays: (3, 2) = SE(2), (6, 3) = BA
-    dl = int(np.asarray(graph.landmarks).shape[-1])
-    dp = 3 if dl == 2 else 6
-    # the VMEM-resident fused operator covers small graphs; the banded
-    # search only pays off (and only runs, ~0.5 s host) at scale.  The
-    # SE(3) threshold is lower: the resident V slabs are dp*dl/6 = 3x
-    # bigger per (pose, landmark), so the VMEM budget runs out earlier.
-    band_threshold = 2048 if dl == 2 else 192
-    band = None
-    if n >= band_threshold and want_band is not False:
-        from toyslam_tpu.ops.band_plan import build_band_aux
-
-        band = build_band_aux(graph, dp=dp, dl=dl)
     return GatherPlan(
-        lm_by_pose=_build_table(lm_pose, lm_mask, n),
-        lm_by_lm=_build_table(lm_lm, lm_mask, m),
-        odom_by_i=_build_table(od_i, od_mask, n),
-        odom_by_j=_build_table(od_j, od_mask, n),
-        fused=FusedAux(
-            closure_e=closure,
-            closure_i=od_i[closure].astype(np.int32),
-            closure_j=od_j[closure].astype(np.int32),
-        ),
-        band=band,
+        lm_by_pose=_build_table(np.asarray(graph.lm_edges.pose), lm_mask, n),
+        lm_by_lm=_build_table(np.asarray(graph.lm_edges.lm), lm_mask, m),
+        odom_by_i=_build_table(np.asarray(graph.odom.i), od_mask, n),
+        odom_by_j=_build_table(np.asarray(graph.odom.j), od_mask, n),
     )
 
 
-def attach_plan(
-    graph: FactorGraph2D, want_band: bool | None = None
-) -> FactorGraph2D:
+def attach_plan(graph: FactorGraph2D) -> FactorGraph2D:
     """Graph with gather tables attached (host-side, once per structure)."""
-    return dataclasses.replace(
-        graph, plan=build_gather_plan(graph, want_band=want_band)
-    )
+    return dataclasses.replace(graph, plan=build_gather_plan(graph))
 
 
 def _build_sharded_table(

@@ -1,13 +1,12 @@
-"""Grid-order Schur assembly + solve: the 10k-scale latency attack.
+"""Grid-order Schur assembly + solve for large chain graphs.
 
 The general Schur path (ops/schur.py) linearizes edges in insertion order
-and pays for that freedom three times per Gauss-Newton iteration at the
-10k-pose scale (profiled on TPU v5e, scripts/profile_10k.py):
+and pays for that freedom three times per Gauss-Newton iteration:
 
   * per-vertex reductions are gathers over edge-order arrays
-    (assemble_blocks: 4.7 ms),
+    (assemble_blocks),
   * the dual-layout PlanOperator re-materializes every per-edge block into
-    vertex-major grids (make_plan_operator: 3.1 ms),
+    vertex-major grids (make_plan_operator),
   * the odometry part of every PCG matvec gathers chain neighbors that are
     literally adjacent rows.
 
@@ -25,11 +24,10 @@ to the gathers it replaces.
 Scope (gated in GaussNewton wiring): single-device, SE(2), chain-only
 odometry (j = i+1 — the 10k workloads and every frontend trajectory;
 loop-closure odometry falls back to the general path), XLA PCG loop.
-The coarse-grid preconditioner build reuses ops/schur.py's
-``build_coarse_precond`` through flat views of the grids (its segment-sums
-run once per ``pcg_precond_refresh`` — amortized); its APPLY uses the
-explicit equilibrated inverse (one matvec) instead of two TPU triangular
-solves.
+The preconditioner build reuses ops/schur.py's ``build_precond`` through
+flat views of the grids (its segment-sums run once per
+``pcg_precond_refresh`` — amortized), and its apply is
+schur.precond_apply_fn.
 
 Reference context: this replaces the role of the reference's dense-QR
 solver at scale (remote/cuda/solver/SolverCudaQr.h:44-81) — the reference
@@ -46,10 +44,8 @@ import numpy as np
 
 from toyslam_tpu.config import OptimizerConfig
 from toyslam_tpu.models.graph import FactorGraph2D
-from toyslam_tpu.ops import band_plan
 from toyslam_tpu.ops import blockmath as bm
 from toyslam_tpu.ops import edge_blocks
-from toyslam_tpu.ops import fused_pcg
 from toyslam_tpu.ops import residuals as res_ops
 from toyslam_tpu.ops import schur
 
@@ -83,19 +79,11 @@ class GridPlan:
     C_meas: jax.Array   # f32[N, 3]
     C_info: jax.Array   # f32[N, 3, 3]
     C_mask: jax.Array   # f32[N]
-    # streamed-band layout re-addressed to the pose-major grid
-    # (band_plan.GridBandAux) — present on large graphs whose observation
-    # structure admits the banded layout; gates the fused band PCG
-    band: object = None
 
 
-def build_grid_plan(
-    graph: FactorGraph2D, want_band: bool | None = None
-) -> GridPlan:
+def build_grid_plan(graph: FactorGraph2D) -> GridPlan:
     """Host-side dual-order construction.  Raises if any real odometry
-    edge is non-chain (the caller gates on this).  ``want_band=False``
-    skips the banded-layout structure search (O(E) host pass) for configs
-    that pin the XLA loop (ADVICE r4)."""
+    edge is non-chain (the caller gates on this)."""
     n, m = graph.num_poses, graph.num_landmarks
     lp = np.asarray(graph.lm_edges.pose)
     ll = np.asarray(graph.lm_edges.lm)
@@ -149,18 +137,12 @@ def build_grid_plan(
     C_meas[rows] = np.asarray(graph.odom.meas)[oreal]
     C_info[rows] = np.asarray(graph.odom.info)[oreal]
     C_mask[rows] = 1.0
-    band = None
-    if n >= 2048 and want_band is not False:
-        # same scale threshold as the gather-plan band
-        kp = P_pose.shape[0] // n
-        band = band_plan.build_grid_band(graph, P_pose, P_lm, P_mask, kp)
     return GridPlan(
         L_pose=L_pose, L_lm=L_lm, L_meas=L_meas, L_info=L_info,
         L_mask=L_mask,
         P_pose=P_pose, P_lm=P_lm, P_meas=P_meas, P_info=P_info,
         P_mask=P_mask,
         C_meas=C_meas, C_info=C_info, C_mask=C_mask,
-        band=band,
     )
 
 
@@ -195,11 +177,11 @@ def _assemble(graph: FactorGraph2D, gp: GridPlan, cfg: OptimizerConfig):
     # landmark edges, both orders, same formulas as the general path
     lb_L = edge_blocks.lm_edge_blocks(
         graph.poses, graph.landmarks, gp.L_pose, gp.L_lm, gp.L_meas,
-        gp.L_info, gp.L_mask, cfg.huber_delta, backend="xla",
+        gp.L_info, gp.L_mask, cfg.huber_delta,
     )
     lb_P = edge_blocks.lm_edge_blocks(
         graph.poses, graph.landmarks, gp.P_pose, gp.P_lm, gp.P_meas,
-        gp.P_info, gp.P_mask, cfg.huber_delta, backend="xla",
+        gp.P_info, gp.P_mask, cfg.huber_delta,
     )
     hll = jnp.sum(lb_L.w_btb.reshape(m, kl, 2, 2), axis=1)
     bl = jnp.sum(lb_L.bl_c.reshape(m, kl, 2), axis=1)
@@ -228,7 +210,7 @@ def _assemble(graph: FactorGraph2D, gp: GridPlan, cfg: OptimizerConfig):
     else:
         ob = edge_blocks.odom_edge_blocks(
             graph.poses, vidx, jidx, gp.C_meas, gp.C_info, gp.C_mask,
-            cfg.huber_delta, backend="xla",
+            cfg.huber_delta,
         )
         ata = ob.w_info
         btb = ob.w_info
@@ -258,8 +240,8 @@ def _assemble(graph: FactorGraph2D, gp: GridPlan, cfg: OptimizerConfig):
 
 
 def _flat_system(g: _GridSystem, graph, gp: GridPlan) -> schur.BlockSystem:
-    """Flat-view adapter so schur.build_coarse_precond runs unchanged on
-    grid quantities (its segment-sums are amortized by the refresh)."""
+    """Flat-view adapter so schur.build_precond runs unchanged on grid
+    quantities (its segment-sums are amortized by the refresh)."""
     return schur.BlockSystem(
         hpp_diag=g.hpp_diag,
         hpp_off=g.tupper,
@@ -272,7 +254,8 @@ def _flat_system(g: _GridSystem, graph, gp: GridPlan) -> schur.BlockSystem:
 
 
 class _FlatGraphView:
-    """Duck-typed graph view over the pose-major grid for the coarse build."""
+    """Duck-typed graph view over the pose-major grid for the
+    preconditioner build: the positional chain (v, v+1) as odometry."""
 
     __slots__ = ("num_poses", "num_landmarks", "odom", "lm_edges", "plan")
 
@@ -336,155 +319,14 @@ def _matvec_factory(d: _GridSystem, hll_inv, gp: GridPlan, n, m):
     return matvec, s_diag
 
 
-# Auto band-vs-grid cost model (round 5, VERDICT r4 weak #6): all
-# constants MEASURED on v5e, committed in scripts/exp_* logs.
-#   band per-PCG-iteration = stack_bytes/855 GB/s (tile stream)
-#                          + n_windows * 0.44 us  (per-window fixed cost)
-#                          + 0.10 ms              (state ops + launch)
-#   band per-GN extra      = stack_bytes * 13 ps/B (scatter-SET scales
-#                            with DESTINATION size) + 1.5 ms (blk+gather)
-#   grid per-PCG-iteration = 0.20 ms (launch cascade floor)
-#                          + (M*Kl + N*Kp) rows * 2 ns (gather legs)
-#                          + N * 80 ns (elementwise cascade)
-# Anchors: 10k single-lap band 0.38-0.41 ms/iter vs grid ~1.0-1.3;
-# 100k band 6.2 vs grid 13.1; scatter 3.3 ms @ 245 MB / 38 ms @ 3.05 GB.
-_BAND_STREAM_BW = 855e9
-_BAND_WIN_COST = 0.44e-6
-_BAND_ITER_BASE = 1.0e-4
-_BAND_SCATTER_PER_BYTE = 1.3e-11
-_BAND_GN_BASE = 1.5e-3
-_GRID_ITER_BASE = 2.0e-4
-_GRID_ROW_COST = 2e-9
-_GRID_N_COST = 8e-8
-
-
-def _band_cost_wins(cfg, gp, n) -> bool:
-    """Modeled per-GN cost: band (materialize + stream) vs grid XLA loop.
-    Used only for ``pcg_backend='auto'``; 'fused' forces band."""
-    band = gp.band
-    b_dl = band.chunk_b * 2
-    stack = band.n_chunks * band.k_windows * 3 * band.w_row * b_dl * 4
-    windows = band.n_chunks * band.k_windows
-    iters = max(1, cfg.pcg_max_iters)
-    t_band = (
-        _BAND_GN_BASE + stack * _BAND_SCATTER_PER_BYTE
-        + iters * (stack / _BAND_STREAM_BW
-                   + windows * _BAND_WIN_COST + _BAND_ITER_BASE)
-    )
-    rows = gp.L_pose.shape[0] + gp.P_pose.shape[0]   # M*Kl + N*Kp
-    t_grid = iters * (
-        _GRID_ITER_BASE + rows * _GRID_ROW_COST + n * _GRID_N_COST
-    )
-    return t_band < t_grid
-
-
-def _band_mode(cfg, gp, n) -> bool:
-    """Static gate for the fused band PCG inside the grid solver: the
-    grid plan found a banded layout, the caller opted into the fused
-    backend ('fused' forces it; 'auto' applies the measured cost model
-    above — VERDICT r4 weak #6 asked for this choice to live in the
-    framework, not in bench-script config), and the preconditioner maps
-    into the kernel (tridiag/jacobi local; a coarse level must admit the
-    streamed fold layout — fused_pcg.FoldCoarse — since the grid-band
-    path carries no resident restriction matrix)."""
-    if getattr(gp, "band", None) is None:
-        return False
-    backend = getattr(cfg, "pcg_backend", "auto")
-    if backend == "xla":
-        return False
-    if getattr(cfg, "pcg_unroll", False):
-        return False
-    if backend == "auto" and not _band_cost_wins(cfg, gp, n):
-        return False
-    local_kind, _, coarse_kind = cfg.pcg_precond.partition("+")
-    if local_kind not in ("jacobi", "tridiag"):
-        return False
-    fold = None
-    if coarse_kind == "coarse":
-        nc = -(-n // cfg.pcg_coarse_group)
-        fold = fused_pcg._fold_layout(n, 3, nc)
-        if fold is None:
-            return False
-    elif coarse_kind:
-        return False
-    # VMEM accounting (f32 words, mirrors fused_pcg.fused_mode's band
-    # branch): PCR planes ride bf16 in the band kernel (half weight);
-    # wide columns are VMEM-resident U slabs; the fold coarse adds only
-    # its double-buffered chunk windows
-    band = gp.band
-    nlevels = max(1, (n - 1).bit_length()) if local_kind == "tridiag" else 0
-    b_dl = band.chunk_b * 2
-    words = (
-        4 * 9 * n                  # T planes + binv (f32)
-        + nlevels * 9 * n          # PCR coefficient planes (bf16)
-        + 8 * 3 * n                # state vectors + temps
-        + 3 * n * band.n_wide * 2  # resident wide-column slabs
-        + 2 * band.k_windows * 3 * band.w_row * b_dl   # tile buffers
-        + (fold.ncp * fold.cw * 3 if fold is not None else 0)
-    )
-    return 4 * words <= 2 * fused_pcg.VMEM_BUDGET_BYTES
-
-
 def _build_precond(cfg, d, hll_inv, s_diag, graph, gp):
-    """Returns a PYTREE — it rides the GaussNewton while_loop carry on
-    the refresh path, so no static fields; the kinds are re-read from cfg
-    (static) at apply time.  ``coarse`` is the explicit
-    Jacobi-equilibrated Newton-Schulz inverse of the Galerkin coarse
-    operator (schur.spd_inverse): the APPLY is one [dim, dim] matvec per
-    PCG iteration instead of two TPU triangular solves (same trade as
-    ops/fused_pcg.py).  Shape: ``(local, coarse)`` for the XLA loop, or a
-    fused_pcg.FusedPrecond (kernel plane layout + streamed fold-coarse
-    stack) when ``_band_mode`` holds — the branch is static in cfg, so
-    the carry structure is consistent across iterations."""
-    local_kind, _, coarse_kind = cfg.pcg_precond.partition("+")
-    upper = d.tupper * gp.C_mask[:, None, None]
-    if local_kind == "tridiag":
-        local = schur.build_tridiag_precond(s_diag, upper)
-    elif local_kind == "chunk":
-        local = schur.build_chunk_precond(s_diag, upper, cfg.pcg_chunk)
-    else:
-        local = schur.inv_blocks(s_diag)
-    coarse = ()
-    if coarse_kind == "coarse":
-        coarse = schur.build_coarse_precond(
-            _flat_system(d, graph, gp), hll_inv,
-            _FlatGraphView(graph, gp), cfg.pcg_coarse_group,
-        )
-    if _band_mode(cfg, gp, graph.num_poses):
-        return fused_pcg.fused_precond_from_parts(
-            local_kind, local, coarse if coarse_kind == "coarse" else None,
-            graph.num_poses, 3,
-        )
-    return (local, coarse)
-
-
-def _precond_apply(cfg, pre, n):
-    local_kind, _, coarse_kind = cfg.pcg_precond.partition("+")
-    local_data, coarse_inv = pre
-    if local_kind == "tridiag":
-        local = lambda r: schur.tridiag_apply(local_data, r)  # noqa: E731
-    elif local_kind == "chunk":
-        local = lambda r: schur.chunk_apply(local_data, r)  # noqa: E731
-    else:
-        local = lambda r: bm.mv(local_data, r)  # noqa: E731
-    if coarse_kind != "coarse":
-        return local
-    group = cfg.pcg_coarse_group
-    nc = -(-n // group)
-    pad = nc * group - n
-
-    def apply(r):
-        z = local(r)
-        rp = jnp.pad(r, ((0, pad), (0, 0)))
-        rc = rp.reshape(nc, group, 3).sum(axis=1)        # [nc, 3]
-        # component-major flatten matches build_coarse_precond's ordering
-        zc = coarse_inv @ rc.T.reshape(-1)
-        zfull = jnp.broadcast_to(
-            zc.reshape(3, nc).T.reshape(nc, 1, 3), (nc, group, 3)
-        ).reshape(nc * group, 3)[:n]
-        return z + zfull
-
-    return apply
+    """schur.build_precond through flat views of the grids; the result is
+    a pytree, so it can ride the GaussNewton while_loop carry on the
+    refresh path."""
+    return schur.build_precond(
+        _flat_system(d, graph, gp), hll_inv, _FlatGraphView(graph, gp),
+        s_diag, cfg.pcg_precond, cfg.pcg_coarse_group, chunk=cfg.pcg_chunk,
+    )
 
 
 def _solve_once(cfg, graph, gp, lam, pre=None):
@@ -501,32 +343,23 @@ def _solve_once(cfg, graph, gp, lam, pre=None):
 
     if pre is None:
         pre = _build_precond(cfg, d, hll_inv, s_diag_fn(), graph, gp)
-    if _band_mode(cfg, gp, n):
-        upper = d.tupper * gp.C_mask[:, None, None]
-        bop = fused_pcg.build_band_operator_grid(
-            d.hll, d.hpl_P, lm_P, d.hpp_diag, upper, gp.band, n,
-        )
-        res = fused_pcg.band_fused_pcg(
-            bop, pre, rhs.T, cfg.pcg_tol, cfg.pcg_max_iters,
-            cfg.pcg_fused_chunk, cfg.pcg_restart_every,
-        )
-        dx_p = res.x.T
-    else:
-        res = schur.pcg(
-            matvec=matvec,
-            precond_apply=_precond_apply(cfg, pre, n),
-            rhs=rhs,
-            tol=cfg.pcg_tol,
-            max_iters=cfg.pcg_max_iters,
-            restart_every=cfg.pcg_restart_every,
-            unroll=cfg.pcg_unroll,
-        )
-        dx_p = res.x
+    res = schur.pcg(
+        matvec=matvec,
+        precond_apply=schur.precond_apply_fn(
+            pre, cfg.pcg_precond, cfg.pcg_coarse_group
+        ),
+        rhs=rhs,
+        tol=cfg.pcg_tol,
+        max_iters=cfg.pcg_max_iters,
+        restart_every=cfg.pcg_restart_every,
+        unroll=cfg.pcg_unroll,
+    )
+    dx_p = res.x
     u = jnp.sum(bm.mtv(d.hpl_L, dx_p[pose_L]), axis=1)
     dx_l = bm.mv(hll_inv, -d.bl - u)
     stats = schur.SolveStats(pcg_iters=res.iterations,
                              pcg_residual=res.residual_norm)
-    return dx_p, dx_l, sys_g.err, stats, (d, hll_inv, s_diag_fn)
+    return dx_p, dx_l, sys_g.err, stats
 
 
 def grid_linearize_solve(cfg: OptimizerConfig):
@@ -543,18 +376,12 @@ def grid_linearize_solve(cfg: OptimizerConfig):
     def _prepare(graph: FactorGraph2D) -> FactorGraph2D:
         if isinstance(graph.plan, GridPlan):
             return graph
-        return dataclasses.replace(
-            graph,
-            plan=build_grid_plan(graph, want_band=cfg.pcg_backend != "xla"),
-        )
+        return dataclasses.replace(graph, plan=build_grid_plan(graph))
 
     if refresh == 1:
 
         def solve(graph: FactorGraph2D, lam):
-            dx_p, dx_l, err, stats, _ = _solve_once(
-                cfg, graph, graph.plan, lam
-            )
-            return dx_p, dx_l, err, stats
+            return _solve_once(cfg, graph, graph.plan, lam)
 
         solve.prepare = _prepare
         return solve
@@ -581,7 +408,7 @@ def grid_linearize_solve(cfg: OptimizerConfig):
                 lambda: _build(graph, lam),
                 lambda: pre,
             )
-        dx_p, dx_l, err, stats, _ = _solve_once(
+        dx_p, dx_l, err, stats = _solve_once(
             cfg, graph, graph.plan, lam, pre=pre
         )
         return dx_p, dx_l, err, stats, (pre, calls + 1)

@@ -1,12 +1,12 @@
 """Full-f32 einsum for the numerical core.
 
-On TPU, XLA lowers contractions to the MXU with bfloat16 passes by default;
+At default precision XLA may run a float32 contraction at reduced
+precision (TF32 on GPU tensor cores keeps about three decimal digits).
 Gauss-Newton normal equations with a 1e6 gauge prior lose the low-order
-bits that carry the actual signal (observed: ATE 1.26 vs 0.39 on the
-reference workload).  Every contraction in the solver core goes through
-this wrapper, pinning HIGHEST precision (3-pass f32 on MXU, exact on VPU).
-The per-edge blocks are tiny, so the 3x pass cost is invisible; accuracy is
-not negotiable here.
+bits that carry the actual signal, and SE(3) rotation products feed the
+residuals directly.  Contractions in the solver core go through this
+wrapper, pinning HIGHEST precision (full float32).  The per-edge blocks
+are tiny, so the cost is invisible; accuracy is not negotiable here.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ methods (python/optimizer/edges2d.py:21-78; C++ remote/graph/edge/*.h; CUDA
 one-thread-per-edge kernels remote/cuda/optimizer/kernels/KernelSe2.cu:37-112
 and KernelSe2Point2.cu:46-155 with atomicAdd scatter).  Here each edge type is
 a single batched closed-form computation over ``[E, ...]`` arrays — XLA fuses
-the whole thing onto the VPU, and the downstream accumulation is a
+the whole thing into a few elementwise kernels, and the downstream
+accumulation is a
 deterministic segment-sum/matmul instead of atomics or mutexes.
 
 Jacobian conventions (matching the reference exactly):

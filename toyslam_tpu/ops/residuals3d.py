@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from toyslam_tpu.ops import blockmath as bm
 from toyslam_tpu.ops import se3
+from toyslam_tpu.ops.precision import einsum
 from toyslam_tpu.ops.residuals import EdgeEval, huber_weights
 
 
@@ -98,7 +99,7 @@ def eval_reproj_edges(
     X = landmarks[lm_idx]         # [E,3]
     R = se3.rot(p)
     Rt = jnp.swapaxes(R, -1, -2)
-    x_c = jnp.einsum("...ij,...j->...i", Rt, X - se3.trans(p))
+    x_c = einsum("...ij,...j->...i", Rt, X - se3.trans(p))
     r = project(intrinsics, x_c) - meas
 
     fx, fy = intrinsics[0], intrinsics[1]

@@ -40,7 +40,7 @@ def _vertex_sum(values, ids, num, table):
     """Per-vertex reduction of per-edge values.
 
     Uses the scatter-free gather table when the graph carries a GatherPlan
-    (ops/gather_plan.py) — TPU scatters serialize, gathers don't — and falls
+    (ops/gather_plan.py) — no atomics, a fixed sum order — and falls
     back to segment_sum (needed under shard_map, where tables would index
     sharded edge arrays).
     """
@@ -79,13 +79,11 @@ def assemble_blocks(
     fixed_prior: float = 1e6,
     exact_odom_jacobians: bool = False,
     axis_name: str | None = None,
-    edge_backend: str = "xla",
 ) -> BlockSystem:
     """Same math as ops/assemble.py but materializing only the sparse blocks.
 
-    Per-edge linearization goes through ops/edge_blocks.py — ``edge_backend``
-    only accepts "xla" (the per-edge Pallas kernels were retired in
-    round 4 — see ops/edge_blocks.py).  With ``axis_name`` set (inside shard_map,
+    Per-edge linearization goes through ops/edge_blocks.py.  With
+    ``axis_name`` set (inside shard_map,
     edge arrays sharded), the per-vertex reductions are psum'd so every
     device holds the complete diagonal blocks/gradients while the
     off-diagonal per-edge blocks (``hpp_off``, ``hpl``) stay shard-local.
@@ -128,7 +126,6 @@ def assemble_blocks(
             graph.odom.info,
             graph.odom.mask,
             huber_delta,
-            backend=edge_backend,
         )
         # A=-I, B=I collapses every product to ±W' (KernelSe2.cu exploits
         # the same structure on the reference's CUDA path).
@@ -155,7 +152,6 @@ def assemble_blocks(
         graph.lm_edges.info,
         graph.lm_edges.mask,
         huber_delta,
-        backend=edge_backend,
     )
     hpl = lb.w_hpl                                                # [E2,3,2]
     hpp_diag = hpp_diag + _vertex_sum(lb.w_ata, graph.lm_edges.pose, n, t_lp)
@@ -214,7 +210,7 @@ def inv2x2(blocks: jax.Array) -> jax.Array:
 
 
 def inv3x3(blocks: jax.Array) -> jax.Array:
-    """Closed-form batched 3x3 inverse via the adjugate (VPU-friendly —
+    """Closed-form batched 3x3 inverse via the adjugate (elementwise —
     no LAPACK-style factorization for tiny blocks)."""
     m = blocks
     c00 = m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1]
@@ -345,9 +341,8 @@ def schur_preconditioner(
     sys: BlockSystem, hll_inv: jax.Array, graph: FactorGraph2D,
     axis_name: str | None = None,
 ) -> jax.Array:
-    """Inverse block-Jacobi of S: ``[N, d, d]`` (closed-form block inverse —
-    ``jnp.linalg.inv`` on batched 3x3s costs ~10 ms at N=10k on TPU vs
-    ~0.5 ms for the adjugate form)."""
+    """Inverse block-Jacobi of S: ``[N, d, d]`` (closed-form block inverse:
+    elementwise, where ``jnp.linalg.inv`` runs a batched factorization)."""
     return inv_blocks(schur_s_diag(sys, hll_inv, graph, axis_name))
 
 
@@ -403,8 +398,8 @@ def plan_matvec(
     With ``axis_name`` set the grids hold each device's edge shard (built
     from per-shard gather tables, ops/gather_plan.py build_sharded_plan):
     the landmark intermediate ``u`` and the pose-space edge partials reduce
-    across the mesh — two small psums ([M,dl] + [N,dp]) per matvec, riding
-    ICI.  ``hpp_diag``/``hll_inv`` are replicated-complete, so their terms
+    across the mesh — two small psums ([M,dl] + [N,dp]) per matvec.
+    ``hpp_diag``/``hll_inv`` are replicated-complete, so their terms
     stay outside the reductions.
     """
     u = jnp.sum(bm.mtv(op.hpl_L, x[op.pose_L]), axis=1)
@@ -456,23 +451,21 @@ class TridiagPrecond(NamedTuple):
 
     Block-Jacobi ignores the pose-chain coupling entirely, so PCG
     information propagates one hop per iteration — on the 10k-pose chain it
-    hits the iteration cap without converging (measured r1: 300 iters,
-    residual stuck at 1e3).  Taking M = the block-tridiagonal part of the
+    hits the iteration cap without converging (300 iterations, residual
+    stuck at 1e3).  Taking M = the block-tridiagonal part of the
     Schur complement (exact S diagonal + the odometry-chain off-diagonal)
     and solving M z = r *exactly* each iteration collapses the chain: PCR
     decouples all N unknowns in ceil(log2 N) data-parallel levels of
     batched small-block algebra — no sequential Thomas sweep, every level
-    is dense [N,d,d] VPU work, ideal for TPU.
+    is dense elementwise [N,d,d] work.
 
     ``alphas[l] / gammas[l]``: the level-``l`` elimination coefficients for
     the lower/upper neighbor at stride ``2^l``; ``binv``: the fully reduced
     (decoupled) diagonal, inverted.  Apply = L shift-multiply-adds on
     ``r`` followed by one block matvec.
 
-    Stored in BLOCK layout ``[N, d, d]``: a plane-layout apply was tried
-    (round 4) and measured SLOWER end-to-end — the [N,d] <-> [d,N] state
-    transposes it needs per PCG iteration cost more than the small-block
-    ops they removed (tuned 10k: 50.2 -> 38.5 GN-iter/s).  Only the BUILD
+    Stored in BLOCK layout ``[N, d, d]``: a plane-layout apply needs
+    [N,d] <-> [d,N] state transposes every PCG iteration.  Only the BUILD
     runs in planes (build_tridiag_planes), where there is no per-iteration
     transpose to pay.
     """
@@ -503,10 +496,9 @@ def _pl_shift_up(x: jax.Array, s: int) -> jax.Array:
 def _pl_mm(a: jax.Array, b: jax.Array) -> jax.Array:
     """Block product on component planes: [d,d,N] x [d,d,N] -> [d,d,N].
 
-    Unrolled elementwise products on [N]-lane vectors — einsum here lowers
-    to a batched dot_general whose tiny 3x3 contraction tiles
-    catastrophically (measured: the whole PCR build 2x SLOWER than the
-    [N,d,d] block layout it was meant to replace)."""
+    Unrolled elementwise products on [N]-long vectors — einsum here lowers
+    to a batched dot_general over a tiny 3x3 contraction (see
+    ops/blockmath.py)."""
     d = a.shape[0]
     rows = [
         jnp.stack([
@@ -561,13 +553,10 @@ def build_tridiag_planes(
     """PCR factorization in COMPONENT-PLANE layout ``[d, d, N]``.
 
     Same elimination as the block-layout build below, but every
-    intermediate is a stack of ``[N]``-long lane vectors instead of
-    ``[N, d, d]`` tiny-trailing-dims arrays — the latter tile to (8, 128)
-    on their (d, d) minor axes, and the factorization's ~100 small ops per
-    level measured 42 ms at N=10k on TPU v5e; the plane form runs the
-    identical math lane-parallel.  Returns ``(alphas [L,d,d,N],
-    gammas [L,d,d,N], binv [d,d,N])`` — the layout ops/fused_pcg.py
-    consumes directly.
+    intermediate is a stack of ``[N]``-long vectors instead of
+    ``[N, d, d]`` tiny-trailing-dims arrays, so the factorization's ~100
+    small ops per level each run over one long contiguous axis.  Returns
+    ``(alphas [L,d,d,N], gammas [L,d,d,N], binv [d,d,N])``.
     """
     n = diag_p.shape[-1]
     levels = max(1, (n - 1).bit_length())
@@ -603,7 +592,7 @@ def build_tridiag_precond(
     zero fill: out-of-range neighbors contribute zero coefficients.
     Internally runs in plane layout (build_tridiag_planes) and transposes
     at the boundary — two cheap transposes ONCE PER BUILD instead of ~100
-    small-block ops per level on TPU-hostile (N, d, d) layouts.
+    small-block ops per level on (N, d, d) layouts.
     """
     al, ga, binv = build_tridiag_planes(
         jnp.transpose(diag, (1, 2, 0)), jnp.transpose(upper, (1, 2, 0))
@@ -651,11 +640,11 @@ def build_chunk_precond(
     the couplings; the coarse level owns the global modes anyway).
 
     Why it exists: the PCR tridiag apply is ceil(log2 N) *sequential*
-    levels of small [N,d,d] VPU ops (~6 ops/level, ~84 ops per PCG
-    iteration at 10k poses), and the whole PCG loop is op-latency-bound
-    (BENCH_SUITE: 0.1% of VPU peak).  This apply is ONE batched MXU matmul
-    ([nb, chunk*d, chunk*d] x [nb, chunk*d]) — the TPU-native trade: a few
-    extra PCG iterations for a ~40x op-count cut per iteration.
+    levels of small [N,d,d] ops (~6 ops/level, ~84 ops per PCG iteration
+    at 10k poses), and a PCG loop of small ops is bound by per-op latency.
+    This apply is ONE batched matmul ([nb, chunk*d, chunk*d] x
+    [nb, chunk*d]) — a few extra PCG iterations for a ~40x op-count cut
+    per iteration.
 
     Build: scatter the diag/upper blocks into ``[nb, chunk*d, chunk*d]``
     dense chunk matrices (row = t*d + a, t = pose within chunk), Jacobi
@@ -707,9 +696,9 @@ def build_chunk_precond(
 def chunk_apply(inv: jax.Array, r: jax.Array) -> jax.Array:
     """``z = M^-1 r`` for the chunked preconditioner — one batched matmul.
 
-    HIGHEST precision: M^-1 must stay symmetric-definite for PCG, and the
-    bf16 MXU passes cost preconditioner quality for no latency win at
-    these shapes.
+    HIGHEST precision: M^-1 must stay symmetric-definite for PCG, and a
+    TF32 product costs preconditioner quality for no latency win at these
+    shapes.
     """
     n, dp = r.shape
     kd = inv.shape[-1]
@@ -729,7 +718,7 @@ def _block_pivot_floor(a: jax.Array) -> jax.Array:
     An absolute 1e-30 floor let a clamped pivot produce ``l = 1e-15``
     whose divided column entries blew up to ~1e30/inf and propagated
     non-finite values into the fill terms — the failure mode the clamp
-    was meant to fix, returning as inf (ADVICE r4).  ``eps * max(diag)``
+    was meant to fix, returning as inf.  ``eps * max(diag)``
     keeps clamped pivots on the block's own scale; combined with zeroing
     the sub-diagonal of a clamped column the factor stays bounded (it is
     the exact factor of a nearby SPD matrix, which is all the
@@ -793,25 +782,22 @@ def spd_inverse(
     sc: jax.Array, ns_iters: int | None = None, cond_bound: float = 2e4,
 ) -> jax.Array:
     """Explicit inverse of a dense SPD matrix by Jacobi equilibration +
-    Newton-Schulz iteration — MXU-parallel where TPU Cholesky is not.
-
-    ``jnp.linalg.cholesky`` on TPU is a sequential blocked panel loop
-    (measured 18.7 ms at dim 960 on v5e, plus 9.9 ms for the explicit
-    inverse via cho_solve with identity RHS); Newton-Schulz
+    Newton-Schulz iteration — dense matmuls only, no sequential
+    factorization:
 
         X_{k+1} = X_k (2 I - A X_k),   X_0 = I / ||A||_inf
 
-    is 2 dense matmuls per step, all MXU.  Every iterate is a polynomial
+    is 2 dense matmuls per step.  Every iterate is a polynomial
     in A, hence symmetric with eigenvalues in (0, 2/lambda) — the result
     is SPD at any iteration count, which is all a PCG preconditioner
     needs.  Jacobi equilibration first (D^-1/2 A D^-1/2 has unit
     diagonal) both bounds cond away from the 1e6 gauge prior's 3e-7
     spread and makes ||.||_inf a tight lambda_max bound.  HIGHEST matmul
     precision: the smallest eigenvalues of the equilibrated operator
-    still sit ~1e-4 below the largest, under bf16's ~3 digits.
+    still sit ~1e-4 below the largest, under TF32's ~3 digits.
 
     The iteration count is DERIVED from the caller's condition bound
-    (ADVICE r4: a fixed 24 silently under-converged past cond ~5e5):
+    (a fixed 24 silently under-converges past cond ~5e5):
     the slow phase contracts the extreme error mode ~2x per step, so
     ``ceil(log2(cond_bound)) + 10`` covers the slow phase plus the
     quadratic tail with margin.  Call sites boost the diagonal by 1e-4
@@ -862,7 +848,7 @@ def build_coarse_precond(
     Local preconditioners (block-Jacobi, the tridiag chain) propagate
     information one hop per PCG iteration, so the *smooth* error modes of a
     10k-pose graph (global drift) converge at O(diameter) iterations —
-    measured r2: 389 iterations at tol 1e-3 even with the exact chain
+    389 iterations at tol 1e-3 even with the exact chain
     solve.  The standard cure is a coarse space: aggregate every ``group``
     consecutive poses into one super-pose (piecewise-constant restriction
     R) and solve the aggregated system ``S_c = R^T S R`` exactly.  S_c is
@@ -872,22 +858,20 @@ def build_coarse_precond(
                          over group pairs (coarse graph is tiny: [Nc,Nc]);
       R^T Hpl Hll^-1 Hlp R — with U = R^T Hpl (one segment-sum over edges
                          per block component) and L = chol(Hll^-1):
-                         V = U L, fill = V V^T — one MXU matmul over the
+                         V = U L, fill = V V^T — one matmul over the
                          [d*Nc, dl*M] flattening.
 
     The coarse system uses COMPONENT-MAJOR ordering (row = a*Nc + c, i.e.
     all x-components, then all y, then all theta) rather than the
     pose-major interleaving of the fine system: component-major lets every
     intermediate be a stack of [Nc, M] planes with two large dims, whereas
-    pose-major needs a [Nc*M, d, dl] buffer whose (3, 2) trailing dims the
-    TPU tiles to (8, 128) — measured 32.9 GB at the 100k-pose scale (OOM)
-    for 771 MB of payload.  Only build_coarse_precond and coarse_apply see
+    pose-major needs a [Nc*M, d, dl] buffer with (3, 2) trailing dims,
+    which layouts pad far beyond their payload at the 100k-pose scale.  Only build_coarse_precond and coarse_apply see
     the ordering; they agree by construction.
 
     Returns the dense EXPLICIT INVERSE of S_c ``[d*Nc, d*Nc]`` (Jacobi-
-    equilibrated Newton-Schulz, see spd_inverse — TPU Cholesky +
-    triangular solves measured 28 ms at Nc=320 where the MXU iteration
-    takes ~2 ms), so the apply is one matvec.  Under shard_map the
+    equilibrated Newton-Schulz, see spd_inverse), so the apply is one
+    matvec instead of two triangular solves.  Under shard_map the
     segment-sums reduce with psum, so every device holds the identical
     coarse inverse.
     """
@@ -931,9 +915,9 @@ def build_coarse_precond(
         for a in range(dp)
     ], axis=0)  # [dp*nc, dl*m]
     # HIGHEST precision is mandatory: S_c's smallest eigenvalue is ~3e-7 of
-    # its largest (the 1e6 gauge prior), far below the MXU's default-bf16
-    # matmul passes — measured r2: default precision makes S_c indefinite,
-    # the Cholesky NaNs, and the whole solve poisons the state.
+    # its largest (the 1e6 gauge prior), far below what a reduced-precision
+    # (TF32/bf16) product keeps: default precision can make S_c indefinite
+    # and poison the whole solve.
     sc = sc - jnp.dot(vf, vf.T, precision=jax.lax.Precision.HIGHEST)
     # scale-relative jitter: SPD safety margin against f32 rounding without
     # affecting preconditioner quality
@@ -953,7 +937,10 @@ def coarse_apply(cinv: jax.Array, group: int, r: jax.Array) -> jax.Array:
     pad = nc * group - n
     rp = jnp.pad(r, ((0, pad), (0, 0)))
     rc = rp.reshape(nc, group, dp).sum(axis=1)          # [nc, dp]
-    zc = cinv @ rc.T.reshape(-1)
+    # HIGHEST: cinv spans the coarse operator's whole spectrum; a TF32
+    # product (~3 digits) would perturb the correction far more than the
+    # fine-level residual PCG is driving down
+    zc = jnp.dot(cinv, rc.T.reshape(-1), precision=jax.lax.Precision.HIGHEST)
     z = zc.reshape(dp, nc).T                            # [nc, dp]
     return jnp.broadcast_to(
         z.reshape(nc, 1, dp), (nc, group, dp)
@@ -1143,7 +1130,7 @@ def build_precond(
     * "tridiag" — exact solve of the block-tridiagonal part of S (exact
       diagonal + odometry-chain coupling) via parallel cyclic reduction;
     * "chunk"   — the same block-tridiagonal solve restricted to
-      ``chunk``-pose chunks, applied as one batched MXU matmul
+      ``chunk``-pose chunks, applied as one batched matmul
       (build_chunk_precond) — the latency-optimal local preconditioner;
     * "<local>+coarse" — two-level: the local preconditioner plus an
       additive Galerkin coarse-grid correction over groups of
@@ -1204,8 +1191,7 @@ def schur_solve(
 
     Returns ``(dx_poses [N,3], dx_landmarks [M,2], stats)``.  Under
     shard_map the PCG state lives replicated on every device; only the
-    matvec partials cross the mesh (one [N,3] psum per iteration — rides
-    ICI).  ``precond`` selects the PCG preconditioner (see build_precond);
+    matvec partials cross the mesh (one [N,3] psum per iteration).  ``precond`` selects the PCG preconditioner (see build_precond);
     passing a prebuilt ``pstate`` skips the build (the freeze path).
     """
     d = damp(sys, lam)
@@ -1260,7 +1246,6 @@ def schur_linearize_solve(cfg: OptimizerConfig, axis_name: str | None = None):
             fixed_prior=cfg.fixed_prior,
             exact_odom_jacobians=cfg.exact_odom_jacobians,
             axis_name=axis_name,
-            edge_backend=cfg.edge_backend,
         )
 
     refresh = cfg.pcg_precond_refresh
@@ -1268,26 +1253,6 @@ def schur_linearize_solve(cfg: OptimizerConfig, axis_name: str | None = None):
 
         def solve(graph: FactorGraph2D, lam: jax.Array):
             sys = _assemble(graph)
-            # Trace-time static dispatch to the fused Pallas PCG kernel
-            # (ops/fused_pcg.py) — decided from shapes/config/pytree
-            # structure only, so the choice is baked into the jit cache key.
-            from toyslam_tpu.ops import fused_pcg as fp
-
-            fmode = fp.fused_mode(cfg, graph, axis_name)
-            if fmode is not None:
-                dx_p, dx_l, stats = fp.fused_schur_solve(
-                    sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
-                    cfg.pcg_precond, cfg.pcg_coarse_group,
-                    cfg.pcg_fused_chunk, cfg.pcg_restart_every,
-                    mode=fmode,
-                )
-                return dx_p, dx_l, sys.err, stats
-            if cfg.pcg_backend == "fused":
-                raise ValueError(
-                    "pcg_backend='fused' but the graph/config does not "
-                    "support the fused PCG kernel (see "
-                    "ops/fused_pcg.py::fused_supported)"
-                )
             dx_p, dx_l, stats = schur_solve(
                 sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters, axis_name,
                 cfg.pcg_restart_every, cfg.pcg_precond,
@@ -1299,10 +1264,6 @@ def schur_linearize_solve(cfg: OptimizerConfig, axis_name: str | None = None):
         return solve
 
     def _build(graph: FactorGraph2D, lam: jax.Array):
-        from toyslam_tpu.ops import fused_pcg as fp
-
-        if fp.fused_supported(cfg, graph, None):
-            return fp.fused_precond_from_graph(cfg, graph, lam)
         sys = _assemble(graph)
         d = damp(sys, lam)
         hll_inv = inv_blocks(d.hll)
@@ -1317,36 +1278,18 @@ def schur_linearize_solve(cfg: OptimizerConfig, axis_name: str | None = None):
         return (_build(graph, lam0), jnp.asarray(0, jnp.int32))
 
     def solve_stateful(graph: FactorGraph2D, lam: jax.Array, state):
-        from toyslam_tpu.ops import fused_pcg as fp
-
         pstate, calls = state
         if refresh > 1:
             # Same-shape branches; single-device only, so no collectives
             # live under the conditional.  calls==0 is excluded: init_state
             # already built at the same graph/lambda, so rebuilding there
-            # would duplicate the full linearization (ADVICE r2).
+            # would duplicate the full linearization.
             pstate = jax.lax.cond(
                 ((calls % refresh) == 0) & (calls > 0),
                 lambda: _build(graph, lam),
                 lambda: pstate,
             )
         sys = _assemble(graph)
-        fmode = fp.fused_mode(cfg, graph, None)
-        if fmode is not None:
-            # fused kernel with the carried (frozen/refreshed) precond
-            dx_p, dx_l, stats = fp.fused_schur_solve(
-                sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
-                cfg.pcg_precond, cfg.pcg_coarse_group,
-                cfg.pcg_fused_chunk, cfg.pcg_restart_every, pre=pstate,
-                mode=fmode,
-            )
-            return dx_p, dx_l, sys.err, stats, (pstate, calls + 1)
-        if cfg.pcg_backend == "fused":
-            raise ValueError(
-                "pcg_backend='fused' but the graph/config does not "
-                "support the fused PCG kernel (see "
-                "ops/fused_pcg.py::fused_supported)"
-            )
         dx_p, dx_l, stats = schur_solve(
             sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters, None,
             cfg.pcg_restart_every, cfg.pcg_precond, cfg.pcg_coarse_group,

@@ -33,14 +33,8 @@ def assemble_blocks_3d(
     fixed_prior: float = 1e6,
     exact_odom_jacobians: bool = False,
     axis_name: str | None = None,
-    edge_backend: str = "xla",
 ) -> BlockSystem:
-    """Sparse 6/3 block system for the SE(3) BA problem.
-
-    ``edge_backend`` selects the reprojection-edge linearization: "xla"
-    (batched formulas; the per-edge Pallas variant was retired in
-    round 4 after three rounds of measured ties).
-    """
+    """Sparse 6/3 block system for the SE(3) BA problem."""
     n, m = graph.num_poses, graph.num_landmarks
 
     od = res3.eval_odom3d_edges(
@@ -63,7 +57,6 @@ def assemble_blocks_3d(
         graph.lm_edges.info,
         graph.lm_edges.mask,
         huber_delta,
-        backend=edge_backend,
     )
 
     w_od = od.w[:, None, None] * graph.odom.info        # [E1,6,6]
@@ -160,29 +153,7 @@ def schur3d_linearize_solve(cfg: OptimizerConfig, axis_name: str | None = None):
             fixed_prior=cfg.fixed_prior,
             exact_odom_jacobians=cfg.exact_odom_jacobians,
             axis_name=axis_name,
-            edge_backend=cfg.edge_backend,
         )
-        # Same trace-time fused-kernel dispatch as the 2D path: the fused
-        # operator/preconditioner builders read block sizes (6/3) off the
-        # arrays, the kernel is generated per dp.  SE(3) graphs with
-        # non-chain odometry fall back (general 6x6 off-diagonal blocks
-        # don't admit the chol(W) column fold-in).
-        from toyslam_tpu.ops import fused_pcg as fp
-
-        fmode = fp.fused_mode(cfg, graph, axis_name)
-        if fmode is not None:
-            dx_p, dx_l, stats = fp.fused_schur_solve(
-                sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters,
-                cfg.pcg_precond, cfg.pcg_coarse_group,
-                cfg.pcg_fused_chunk, cfg.pcg_restart_every,
-                mode=fmode,
-            )
-            return dx_p, dx_l, sys.err, stats
-        if cfg.pcg_backend == "fused":
-            raise ValueError(
-                "pcg_backend='fused' but the graph/config does not support "
-                "the fused PCG kernel (see ops/fused_pcg.py::fused_supported)"
-            )
         dx_p, dx_l, stats = schur.schur_solve(
             sys, graph, lam, cfg.pcg_tol, cfg.pcg_max_iters, axis_name,
             cfg.pcg_restart_every, cfg.pcg_precond, cfg.pcg_coarse_group,

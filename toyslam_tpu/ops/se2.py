@@ -2,7 +2,7 @@
 
 The reference stores poses as 3x3 homogeneous matrices and converts back and
 forth through scipy rotations (reference python/tools.py:6-42, and the C++
-equivalents remote/graph/Helper.h:6-31).  On TPU a compact ``(x, y, theta)``
+equivalents remote/graph/Helper.h:6-31).  A compact ``(x, y, theta)``
 parameterization is strictly better: it is the same 3-dof tangent space the
 optimizer updates, retraction is elementwise, and batches of poses are plain
 ``[N, 3]`` arrays that vmap/shard cleanly.  Homogeneous-matrix converters are

@@ -2,7 +2,7 @@
 
 The reference's "further development" roadmap names 3D/SE(3) support
 (reference README.md:52-56) but implements none of it; this module is the
-3D analogue of ops/se2.py, designed array-first for TPU:
+3D analogue of ops/se2.py, designed array-first:
 
 * a pose is ``[..., 12]`` — row-major rotation (9) then translation (3) —
   so batches are plain 2-D arrays that vmap/shard/gather cleanly (no
@@ -14,13 +14,17 @@ The reference's "further development" roadmap names 3D/SE(3) support
 
 All functions broadcast over leading batch dimensions.  Rodrigues formulas
 use the numerically-safe small-angle series so gradients are finite at
-theta = 0.
+theta = 0.  Products run at HIGHEST precision (ops/precision.py): they feed
+the residuals, and a TF32 rotation product would put a ~1e-3 relative
+error on every transformed point.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 from jax import Array
+
+from toyslam_tpu.ops.precision import einsum
 
 _EPS = 1e-8
 
@@ -74,7 +78,7 @@ def exp_so3(w: Array) -> Array:
         small, 0.5 - theta2 / 24.0, (1.0 - jnp.cos(theta)) / theta2
     )
     K = hat(w)
-    KK = K @ K
+    KK = einsum("...ij,...jk->...ik", K, K)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), K.shape)
     return eye + a[..., None, None] * K + b[..., None, None] * KK
 
@@ -117,15 +121,15 @@ def compose(a: Array, b: Array) -> Array:
     """Group product ``a · b`` on ``[..., 12]`` poses."""
     Ra, ta = rot(a), trans(a)
     Rb, tb = rot(b), trans(b)
-    R = Ra @ Rb
-    t = ta + jnp.einsum("...ij,...j->...i", Ra, tb)
+    R = einsum("...ij,...jk->...ik", Ra, Rb)
+    t = ta + einsum("...ij,...j->...i", Ra, tb)
     return make(R, t)
 
 
 def inverse(a: Array) -> Array:
     Ra, ta = rot(a), trans(a)
     Rt = jnp.swapaxes(Ra, -1, -2)
-    return make(Rt, -jnp.einsum("...ij,...j->...i", Rt, ta))
+    return make(Rt, -einsum("...ij,...j->...i", Rt, ta))
 
 
 def relative(a: Array, b: Array) -> Array:
@@ -135,13 +139,13 @@ def relative(a: Array, b: Array) -> Array:
 
 def transform_point(pose: Array, pt: Array) -> Array:
     """World coordinates of a body-frame point."""
-    return trans(pose) + jnp.einsum("...ij,...j->...i", rot(pose), pt)
+    return trans(pose) + einsum("...ij,...j->...i", rot(pose), pt)
 
 
 def inv_transform_point(pose: Array, pt: Array) -> Array:
     """Body-frame coordinates of a world point: ``R^T (p - t)``."""
     d = pt - trans(pose)
-    return jnp.einsum("...ji,...j->...i", rot(pose), d)
+    return einsum("...ji,...j->...i", rot(pose), d)
 
 
 def retract(pose: Array, delta: Array) -> Array:
@@ -152,7 +156,7 @@ def retract(pose: Array, delta: Array) -> Array:
     exponential (the translation is not coupled through V(omega)).
     """
     t = trans(pose) + delta[..., :3]
-    R = rot(pose) @ exp_so3(delta[..., 3:6])
+    R = einsum("...ij,...jk->...ik", rot(pose), exp_so3(delta[..., 3:6]))
     return make(R, t)
 
 

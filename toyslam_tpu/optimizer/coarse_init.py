@@ -2,10 +2,9 @@
 
 At 100k poses and default odometry noise, dead-reckoning accumulates O(pi)
 rotation error over the arena — the Gauss-Newton basin does not contain
-the initial guess, and no solver speed fixes a wrong basin
-(BENCH_PLATEAU.json round 4: plateau-100k-revisit stalls ~60x above the
-ground-truth chi^2 while the identical solver fully recovers the
-trajectory from a low-noise start).  The reference never faces this: its
+the initial guess, and no solver speed fixes a wrong basin (the 100k
+revisit graph stalls far above the ground-truth chi^2 while the identical
+solver fully recovers the trajectory from a low-noise start).  The reference never faces this: its
 workloads stop at 150 poses and it initializes from dead reckoning too
 (reference python/slam_main.py:99-123); real systems initialize
 incrementally.  This module is the batch equivalent, standard
@@ -22,8 +21,7 @@ multi-resolution practice expressed with the machinery we already have:
    landmarks) survive decimation, which is what makes the coarse solve
    observable.
 2. **Solve** the coarse problem (factor x fewer poses: 100k -> 6.25k,
-   where the default-noise DR guess IS inside the basin — measured at
-   10k, BENCH_PLATEAU).
+   where the default-noise DR guess IS inside the basin, as at 10k).
 3. **Prolong**: anchor poses move to their optimized values; in-segment
    poses re-integrate the original odometry from their segment anchor
    (the correction is rigid per segment, smooth across segments because
@@ -219,7 +217,7 @@ def incremental_init(
     stays inside the GN basin by induction — the property batch DR
     initialization loses at scale.
 
-    TPU-shaped: prefixes are expressed through the VALIDITY MASKS on the
+    Shape-stable: prefixes are expressed through the VALIDITY MASKS on the
     full-size graph (masks are data, not structure), so every prefix
     solve reuses ONE compiled executable and the structure plan; the
     inter-prefix state splice is host-side numpy.  Cost ~

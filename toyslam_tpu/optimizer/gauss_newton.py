@@ -15,7 +15,7 @@ Control flow mirrors the reference Python optimizer
   1e6 prior, not by skipping their update (graph_optimizer.py:73-77).
 
 The linear solve is pluggable: :func:`dense_linearize_solve` materializes H
-via one MXU matmul (ops/assemble.py); the Schur/PCG path for large sparse
+via one matmul (ops/assemble.py); the Schur/PCG path for large sparse
 graphs lives in ``ops/schur.py`` and plugs in through the same interface.
 """
 
@@ -125,8 +125,7 @@ class GaussNewton:
     def __post_init__(self):
         # Build the linearize-solve ONCE: _run's jit cache is keyed on the
         # callable's identity, so a fresh closure per optimize() call would
-        # silently recompile every time (observed: 460 ms/iter instead of
-        # 5 ms/iter on TPU).
+        # silently recompile every time.
         object.__setattr__(self, "_builtin_solver", self.solve is None)
         if self.solve is None:
             if self.config.solver == "schur":
@@ -188,12 +187,7 @@ class GaussNewton:
         ):
             from toyslam_tpu.ops.gather_plan import attach_plan
 
-            # the banded-layout search only matters if the fused band
-            # path can be selected; skip its host-side O(E) pass when the
-            # config pins the XLA loop (ADVICE r4)
-            graph = attach_plan(
-                graph, want_band=self.config.pcg_backend != "xla"
-            )
+            graph = attach_plan(graph)
         return graph
 
     def optimize(self, graph: FactorGraph2D) -> OptimizeResult:

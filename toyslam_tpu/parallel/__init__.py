@@ -5,7 +5,7 @@ C++ TCP optimizer server split (reference python/remote/graph_client.py,
 remote/conn/, remote/app/) and the CUDA one-thread-per-edge kernels with
 atomicAdd scatter (remote/cuda/optimizer/kernels/) — with a ``shard_map``
 over a ``jax.sharding.Mesh``: edges and landmark blocks are sharded across
-devices, every reduction is a deterministic XLA collective over ICI/DCN.
+devices, every reduction is a deterministic XLA collective.
 """
 
 from toyslam_tpu.parallel.mesh import (

@@ -98,8 +98,7 @@ def distributed_linearize_solve(
     once per graph structure): pads the edge arrays to the mesh and
     attaches *per-shard* gather tables (gather_plan.build_sharded_plan),
     so the scatter-free reductions and the dual-layout PlanOperator serve
-    the distributed PCG loop exactly as they do single-device (round 1
-    fell back to segment_sum under shard_map).
+    the distributed PCG loop exactly as they do single-device.
     """
     inner = schur.schur_linearize_solve(cfg, axis_name=axis)
     n_dev = mesh.shape[axis]

@@ -3,9 +3,11 @@
 The reference's only distribution mechanism is a TCP client/server pair
 moving one whole graph per request (reference
 python/remote/graph_client.py:13-52 ↔ remote/conn/ConnectionManagerServer.h:
-22-61).  The TPU-native replacement is a jax device mesh: edges shard along
-one axis, reductions ride ICI within a host and DCN across hosts via the
-XLA collectives inserted for ``psum`` — no sockets in the hot path.
+22-61).  The replacement is a jax device mesh: edges shard along one
+axis, and reductions run as the XLA collectives inserted for ``psum``
+(NCCL over NVLink between the GPUs of a host) — no sockets in the hot
+path.  Every GPU of a host reaches every other at the same rate, so the
+mesh is flat and follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ def initialize_distributed(
     ``TOYSLAM_NUM_PROCESSES``, ``TOYSLAM_PROCESS_ID``), so a launcher can
     configure workers without code changes; with no coordinator configured
     this is a no-op (single-process mode) and returns False.  Verified with
-    the Gloo CPU backend (scripts/launch_multihost.py) — the same call
-    joins TPU pods over DCN.
+    the Gloo CPU backend (scripts/launch_multihost.py).
     """
     coordinator = coordinator or os.environ.get("TOYSLAM_COORDINATOR")
     if not coordinator:
@@ -68,9 +69,9 @@ def make_host_mesh(axis: str = EDGE_AXIS) -> Mesh:
     """A 1D mesh over ALL global devices (every process's chips).
 
     ``jax.devices()`` orders devices process-major, so consecutive shards
-    are host-local: per-vertex psums reduce over ICI within each host first
-    and cross hosts on DCN once — the hierarchy XLA's collective lowering
-    exploits automatically for a contiguous 1D mesh.
+    are host-local: per-vertex psums reduce within each host first and
+    cross hosts once — the hierarchy XLA's collective lowering exploits
+    automatically for a contiguous 1D mesh.
     """
     return Mesh(np.asarray(jax.devices()), (axis,))
 

@@ -3,8 +3,8 @@
 The edge-sharded path (``parallel/distributed.py``) replicates every state
 array (poses, landmarks, ``hll``, the whole PCG iterate) on every device, so
 per-device memory is O(whole graph) and the replicated PCG fraction bounds
-scaling (measured round 2: total work x13.6 at 8 fake devices).  This module
-is the north-star design instead — the TPU-native replacement, at scale, for
+scaling.  This module is the scalable design instead — the replacement, at
+scale, for
 the reference's whole-graph-per-request socket server
 (reference remote/conn/ConnectionManagerServer.h:22-61,
 remote/app/ConnectionHandler.h:14-37):
@@ -21,7 +21,7 @@ remote/app/ConnectionHandler.h:14-37):
 * the only cross-device traffic is **boundary exchange**: poses/landmarks
   referenced across a cut are listed once in small static registries, and
   state publication / partial-sum reduction over them is a handful of
-  boundary-sized ``psum``s per operation (3 per PCG matvec) riding ICI —
+  boundary-sized ``psum``s per operation (3 per PCG matvec) —
   never an O(N) collective.
 
 SLAM graphs make this cheap: trajectories are chains and observations are
@@ -32,10 +32,8 @@ THREE-level hierarchy (``_coarse_build_partitioned``): each device
 assembles only its row block of the coarse system and inverts its own
 super-group diagonal blocks (zero-comm apply), and the only replicated
 object is the super-group re-aggregation ``[dp*Nc2, dp*Nc2]`` —
-O(Nc/group2), tiny — fed by one [Nc2, dp] psum per apply.  Round 3's
-replicated coarse Cholesky + per-iteration cho_solve capped predicted
-scaling efficiency at 0.52 (SCALING.json v2); no O(Nc)-sized replicated
-solve remains.
+O(Nc/group2), tiny — fed by one [Nc2, dp] psum per apply.  No
+O(Nc)-sized replicated solve remains.
 
 Everything funnels through ``GaussNewton`` unchanged via the
 ``LinearizeSolve`` interface: ``partitioned_linearize_solve(cfg, mesh)``
@@ -426,7 +424,7 @@ def _linearize_local(g, cfg: OptimizerConfig, x_ext, l_ext, pl):
         lb = eb3.reproj_edge_blocks(
             x_ext, l_ext, g.intrinsics, pl.lm_p_loc, pl.lm_ext,
             g.lm_edges.meas, g.lm_edges.info, g.lm_edges.mask,
-            cfg.huber_delta, backend=cfg.edge_backend,
+            cfg.huber_delta,
         )
         return (
             bm.quad(od.JA, w_od), bm.quad(od.JB, w_od),
@@ -438,7 +436,6 @@ def _linearize_local(g, cfg: OptimizerConfig, x_ext, l_ext, pl):
     lb = edge_blocks.lm_edge_blocks(
         x_ext, l_ext, pl.lm_p_loc, pl.lm_ext, g.lm_edges.meas,
         g.lm_edges.info, g.lm_edges.mask, cfg.huber_delta,
-        backend=cfg.edge_backend,
     )
     if cfg.exact_odom_jacobians:
         from toyslam_tpu.ops import residuals as res_ops
@@ -457,7 +454,7 @@ def _linearize_local(g, cfg: OptimizerConfig, x_ext, l_ext, pl):
         )
     ob = edge_blocks.odom_edge_blocks(
         x_ext, pl.odom_i_loc, pl.odom_j_ext, g.odom.meas, g.odom.info,
-        g.odom.mask, cfg.huber_delta, backend=cfg.edge_backend,
+        g.odom.mask, cfg.huber_delta,
     )
     return (
         ob.w_info, ob.w_info, -ob.w_info, -ob.wr, ob.wr,
@@ -623,11 +620,10 @@ def _coarse_build_partitioned(
 ):
     """Three-level SHARDED Galerkin coarse hierarchy.
 
-    Round 3's coarse level assembled the full ``[dp*Nc, dp*Nc]`` Galerkin
-    system on EVERY device and Cholesky-solved it replicated, per PCG
-    iteration — the builder's own scaling decomposition (SCALING.json v2)
-    showed that replicated share capping predicted efficiency at 0.52 at
-    D=8.  Here the coarse system is never solved replicated; instead each
+    Assembling the full ``[dp*Nc, dp*Nc]`` Galerkin system on EVERY
+    device and solving it replicated per PCG iteration would make that
+    replicated share bound the scaling.  Here the coarse system is never
+    solved replicated; instead each
     device assembles only ITS ROW BLOCK ``S_c[mine, :]`` (memory and work
     O(Nc^2/D)) and the correction splits into
 
@@ -651,9 +647,8 @@ def _coarse_build_partitioned(
         keyframe cut crosses ~1-3% of edges);
       * landmark fill: interior landmarks (all observers local) contribute
         ``V_int V_int^T`` locally; boundary-landmark U columns are
-        completed by one psum — INCLUDING the owner's own observations,
-        which round 3's build dropped (its tail columns only ever held
-        remote observers' contributions) — and each device then takes its
+        completed by one psum — INCLUDING the owner's own observations —
+        and each device then takes its
         row slice of the exact ``V_bnd V_bnd^T`` product, so nothing is
         owner-masked or double counted.
 
@@ -822,7 +817,8 @@ def _coarse_apply_partitioned(pre, group, group2, r, nb, n_dev, axis):
     rc2 = rc.reshape(nc2b, g2, dp).transpose(0, 2, 1).reshape(
         nc2b, dp * g2
     )
-    z2 = jnp.einsum("bij,bj->bi", dinv, rc2)
+    z2 = jnp.einsum("bij,bj->bi", dinv, rc2,
+                    precision=jax.lax.Precision.HIGHEST)
     z2 = z2.reshape(nc2b, dp, g2).transpose(0, 2, 1).reshape(ncb, dp)
 
     # level 3
@@ -830,7 +826,8 @@ def _coarse_apply_partitioned(pre, group, group2, r, nb, n_dev, axis):
     rc3 = jnp.zeros((nc2, dp), r.dtype)
     rc3 = jax.lax.dynamic_update_slice(rc3, rc3_local, _idx(d * nc2b, 0))
     rc3 = jax.lax.psum(rc3, axis)
-    zc3 = c3inv @ rc3.T.reshape(-1)
+    zc3 = jnp.dot(c3inv, rc3.T.reshape(-1),
+                  precision=jax.lax.Precision.HIGHEST)
     z3 = zc3.reshape(dp, nc2).T                           # [nc2, dp]
     z3_local = jax.lax.dynamic_slice(z3, _idx(d * nc2b, 0), (nc2b, dp))
     z3_fine = jnp.broadcast_to(

@@ -15,7 +15,7 @@ Two simulation paths:
   hit decisions and silently changes the problem (observed: chi^2 135428 vs
   116126 for the "same" seed).
 * :func:`simulate_jax` — the fully-on-device pipeline (fused XLA sim) for
-  workloads that want scan generation on the TPU itself.
+  workloads that want scan generation on the accelerator itself.
 
 Noise semantics matched to the reference:
 

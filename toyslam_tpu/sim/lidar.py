@@ -54,7 +54,10 @@ def scan_pose(
     dirs = jnp.stack([jnp.cos(angles), jnp.sin(angles)], axis=-1)  # [R,2]
 
     oc = env[None, :, :] - origin[None, None, :]          # [R?broadcast P,2]
-    tca = jnp.einsum("rd,pd->rp", dirs, env - origin)     # [R,P]
+    # HIGHEST: the ray-circle distances become range measurements; TF32
+    # would put a ~1e-3 relative error on them, above the sensor noise
+    tca = jnp.einsum("rd,pd->rp", dirs, env - origin,
+                     precision=jax.lax.Precision.HIGHEST)  # [R,P]
     d2 = jnp.sum((env - origin) ** 2, axis=-1)[None, :] - tca**2
     r2 = radius * radius
     thc = jnp.sqrt(jnp.maximum(r2 - d2, 0.0))

@@ -10,7 +10,7 @@ end (or on demand) and writes the optimized vertices back
 :class:`LiveSlam` reproduces that runtime shape on the array-native stack:
 frames accumulate into a :class:`GraphBuilder2D` (bucketed shapes, so the
 periodic re-optimizations re-jit only when a bucket boundary is crossed),
-optimization is the batched TPU Gauss-Newton (or a remote graph server via
+optimization is the batched JAX Gauss-Newton (or a remote graph server via
 ``optimize_fn``), and the optimized state is written back into the builder
 so later frames extend the refined estimate.
 

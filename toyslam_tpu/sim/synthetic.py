@@ -1,7 +1,7 @@
 """Synthetic large-scale problem generators (BASELINE.json configs 1-2).
 
 The reference tops out at its single 150-pose scripted run; these generators
-produce the scale-up workloads the TPU engine is designed for:
+produce the scale-up workloads the engine is designed for:
 
 * :func:`multi_loop_controls` — a closed circuit repeated L times so every
   lap re-observes the same landmarks (dense loop closures), ~1k poses;
@@ -153,8 +153,8 @@ def make_large_problem(
 
     ``laps > 1`` repeats the sweep: every lap re-observes the same
     landmarks, giving the scale workload real loop closures — without
-    them ATE is unobservable by construction (drift is unconstrained,
-    VERDICT r2 weak #4) and only chi^2 can gate quality.  ``num_poses``
+    them ATE is unobservable (drift is unconstrained by construction)
+    and only chi^2 can gate quality.  ``num_poses``
     stays the TOTAL pose count (``num_poses // laps`` per lap).
     """
     noise = noise or NoiseConfig()
